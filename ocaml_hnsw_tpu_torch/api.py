@@ -1,0 +1,258 @@
+"""Public API of the torch port: `Index`, the hnswlib-shaped surface of the JAX
+package's `ocaml_hnsw_tpu/api.py::Index` on torch tensors on one device.
+
+Ported so far is the main path: a first `add_items` that fills most of an
+empty index builds the graph in bulk (`models/bulk.py`), and `knn_query` on
+an index of PACKED_THRESHOLD nodes or more with a matmul metric serves from
+the packed inline-int8 engine (`models/packed.py`).  Where the JAX package
+would take the incremental builder or the classic engine, this raises
+NotImplementedError.  The defaults of `knn_query` are the JAX package's,
+not a benchmarked operating point.
+
+`Index(space, dim, device="cuda")` keeps every tensor on `device` and never
+falls back to another: with no CUDA device, "cuda" raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ocaml_hnsw_tpu_torch.config import HnswConfig
+from ocaml_hnsw_tpu_torch.models.build import BuildState
+from ocaml_hnsw_tpu_torch.models.graph import GraphTensors
+
+
+def _check_space(space: str) -> None:
+    from ocaml_hnsw_tpu_torch.ops.metrics import is_metric, registered_metrics
+
+    if not is_metric(space):
+        raise ValueError(
+            f"space must be a registered metric {registered_metrics()} "
+            f"(ops.metrics.register_metric adds new ones), got {space!r}"
+        )
+
+
+def _pad_batch(n: int) -> int:
+    """Power-of-two batch buckets (floor 8), as in the JAX package."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available (pass device='cpu' to run on the CPU)")
+    return dev
+
+
+class Index:
+    """HNSW index with the canonical hnswlib-style surface."""
+
+    #: graphs at or above this size use the seed scan for layer-0 entry
+    SEED_THRESHOLD = 4096
+    #: graphs at or above this size use the packed inline-int8 engine when
+    #: its payload fits PACKED_BUDGET_BYTES
+    PACKED_THRESHOLD = 100_000
+    PACKED_BUDGET_BYTES = 8 << 30
+
+    def __init__(self, space: str, dim: int, *, device="cuda"):
+        _check_space(space)
+        self.space = space
+        self.dim = dim
+        self.device = _resolve_device(device)
+        self._state: BuildState | None = None
+        self._labels = np.zeros((0,), dtype=np.int64)
+        self._label_to_id: dict[int, int] = {}
+        self._seeds = None  # SeedIndex cache; invalidated on every add
+        self._packed = None  # PackedGraph cache; invalidated on every add
+        self.ef = 10
+
+    # ------------------------------------------------------------- lifecycle
+    def init_index(
+        self,
+        max_elements: int,
+        M: int = 16,
+        ef_construction: int = 200,
+        random_seed: int = 100,
+        round_size: int = 1024,
+        keep_pruned_connections: bool = False,
+        extend_candidates: bool = False,
+        select: str = "heuristic",
+        storage: str = "f32",
+        **_ignored,  # num_threads etc. accepted for source compatibility
+    ) -> None:
+        cfg = HnswConfig(
+            dim=self.dim,
+            metric=self.space,
+            M=M,
+            ef_construction=ef_construction,
+            seed=random_seed,
+            keep_pruned_connections=keep_pruned_connections,
+            extend_candidates=extend_candidates,
+            select=select,
+            storage=storage,
+        )
+        self._state = BuildState(cfg, max_elements, round_size=round_size,
+                                 device=self.device)
+        self._seeds = None
+        self._packed = None
+        self._labels = np.zeros((0,), dtype=np.int64)
+        self._label_to_id = {}
+
+    def _require_init(self) -> BuildState:
+        if self._state is None:
+            raise RuntimeError("call init_index first")
+        return self._state
+
+    @property
+    def config(self) -> HnswConfig:
+        return self._require_init().config
+
+    @property
+    def graph(self) -> GraphTensors:
+        return self._require_init().graph
+
+    # ------------------------------------------------------------- mutation
+    def add_items(self, data, ids=None, **_ignored) -> None:
+        st = self._require_init()
+        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+        if data.shape[1] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {data.shape[1]}")
+        n_new = data.shape[0]
+        n_cur = st.host_n
+        if n_cur + n_new > st.max_elements:
+            raise RuntimeError(
+                f"index is full: {n_cur} + {n_new} > max_elements "
+                f"{st.max_elements}"
+            )
+        if ids is None:
+            labels = np.arange(n_cur, n_cur + n_new, dtype=np.int64)
+        else:
+            labels = np.asarray(ids, dtype=np.int64).reshape(-1)
+            if labels.shape[0] != n_new:
+                raise ValueError("ids length must match data rows")
+        clash = [int(l) for l in labels if int(l) in self._label_to_id]
+        if clash:
+            raise ValueError(f"duplicate labels not supported: {clash[:5]}")
+        st.add(data)
+        self._seeds = None  # upper-layer membership changed
+        self._packed = None  # adjacency changed
+        for off, lab in enumerate(labels):
+            self._label_to_id[int(lab)] = n_cur + off
+        self._labels = np.concatenate([self._labels, labels])
+
+    def mark_deleted(self, label: int) -> None:
+        """Tombstone (in place): traversed, never returned."""
+        self.graph.deleted[self._id_of(label)] = True
+
+    def unmark_deleted(self, label: int) -> None:
+        self.graph.deleted[self._id_of(label)] = False
+
+    # --------------------------------------------------------------- queries
+    def set_ef(self, ef: int) -> None:
+        self.ef = int(ef)
+
+    def _seed_index(self):
+        """Lazy SeedIndex for the seed-scan entry on large graphs (None when
+        too small or no upper-layer nodes exist)."""
+        st = self._require_init()
+        if st.host_n < self.SEED_THRESHOLD:
+            return None
+        if self._seeds is None:
+            from ocaml_hnsw_tpu_torch.models.search import build_seed_index
+
+            self._seeds = build_seed_index(st.graph, self.space)
+        return self._seeds
+
+    def _packed_index(self):
+        """Lazy PackedGraph; None when the graph is small, the metric has no
+        matmul form, or the payload would exceed PACKED_BUDGET_BYTES."""
+        st = self._require_init()
+        if st.host_n < self.PACKED_THRESHOLD:
+            return None
+        from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+
+        if get_metric(self.space).matmul_score is None:
+            return None
+        from ocaml_hnsw_tpu_torch.models.packed import pack_d_pad, pack_graph
+
+        deg = st.graph.adj0.shape[1]
+        if st.graph.n_cap * deg * pack_d_pad(self.dim) > self.PACKED_BUDGET_BYTES:
+            return None
+        if self._packed is None:
+            self._packed = pack_graph(st.graph, self.space)
+        return self._packed
+
+    def knn_query(self, data, k: int = 1, ef: int | None = None,
+                  max_iters: int | None = None,
+                  engine: str = "auto",
+                  expand: int | None = None,
+                  expand_schedule: tuple | None = None,
+                  rerank_k: int | None = None,
+                  interleave: int = 1,
+                  **_ignored):
+        """Returns (labels i64[Q, k], dists f32[Q, k]); -1 label on padding.
+
+        engine="auto"/"packed" serves from the packed engine (seed-scan
+        entry, inline int8 beam, exact f32 rerank); "classic", and "auto" on
+        an index the packed engine does not take, raise NotImplementedError
+        (the classic engine is not ported yet)."""
+        st = self._require_init()
+        if st.host_n == 0:
+            raise RuntimeError("index is empty")
+        if engine not in ("auto", "classic", "packed"):
+            raise ValueError(f"engine must be auto|classic|packed, got {engine!r}")
+        packed = self._packed_index() if engine in ("auto", "packed") else None
+        if packed is None:
+            raise NotImplementedError(
+                "classic query engine: later PR (the packed engine needs "
+                f">= {self.PACKED_THRESHOLD} nodes, a matmul metric and a "
+                "payload within PACKED_BUDGET_BYTES)")
+        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+        q_n = data.shape[0]
+        b = _pad_batch(q_n)
+        padded = np.zeros((b, self.dim), np.float32)
+        padded[:q_n] = data
+        seeds = self._seed_index()
+        from ocaml_hnsw_tpu_torch.models.packed import knn_search_packed
+
+        ids, dists = knn_search_packed(
+            st.graph,
+            packed,
+            torch.from_numpy(padded).to(self.device),
+            k=k,
+            ef=max(ef if ef is not None else self.ef, k),
+            metric=self.space,
+            max_iters=max_iters,
+            seeds=seeds,
+            seed_e=8,
+            expand=2 if expand is None else expand,
+            expand_schedule=expand_schedule,
+            rerank_k=rerank_k,
+            interleave=interleave if b % max(interleave, 1) == 0 else 1,
+        )
+        ids = ids.cpu().numpy()[:q_n]
+        dists = dists.cpu().numpy()[:q_n]
+        labels = np.where(ids >= 0, self._labels[np.maximum(ids, 0)], -1)
+        return labels.astype(np.int64), dists
+
+    # ------------------------------------------------------------ inspection
+    def get_current_count(self) -> int:
+        return self._require_init().host_n
+
+    def get_max_elements(self) -> int:
+        return self._require_init().max_elements
+
+    def get_ids_list(self) -> list[int]:
+        return self._labels.tolist()
+
+    def _id_of(self, label) -> int:
+        try:
+            return self._label_to_id[int(label)]
+        except KeyError:
+            raise KeyError(f"label {label} not in index") from None

@@ -1,0 +1,170 @@
+"""Device-resident index state, the port of `ocaml_hnsw_tpu/models/graph.py`:
+layer 0 is one int32[N_cap, M_max0] matrix with -1 sentinels, and the upper
+layers live in one compact arena `adj_up[T_cap, M]` (node v's layer-ℓ row is
+`adj_up[up_base[v] + ℓ - 1]`; the last arena row is a reserved sink).
+
+`graph_from_numpy` / `graph_to_numpy` carry a graph across packages by the
+field names of `GraphTensors._fields`, so a graph the JAX package built
+(`np.asarray` of each field) becomes this package's graph, and back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ocaml_hnsw_tpu_torch.config import HnswConfig
+from ocaml_hnsw_tpu_torch.utils import round_up
+
+
+@dataclasses.dataclass
+class GraphTensors:
+    """The whole index as tensors on one device.  Shapes use N_cap = padded
+    capacity; field meanings are those of the JAX package's GraphTensors.
+
+    vectors [N_cap, D] (f32 / bf16 / int8), scales f32[N_cap], norms
+    f32[N_cap], adj0 i32[N_cap, M_max0], adj_up i32[T_cap, M], up_base
+    i32[N_cap], levels i32[N_cap] (-1 = unoccupied), deleted bool[N_cap];
+    up_n, entry, max_level, n are 0-d int32 tensors; l_max_static an int."""
+
+    vectors: torch.Tensor
+    scales: torch.Tensor
+    norms: torch.Tensor
+    adj0: torch.Tensor
+    adj_up: torch.Tensor
+    up_base: torch.Tensor
+    up_n: torch.Tensor
+    levels: torch.Tensor
+    entry: torch.Tensor
+    max_level: torch.Tensor
+    n: torch.Tensor
+    deleted: torch.Tensor
+    l_max_static: int
+
+    # names of the tensor fields, in declaration order (as in the JAX package)
+    _fields = ("vectors", "scales", "norms", "adj0", "adj_up", "up_base",
+               "up_n", "levels", "entry", "max_level", "n", "deleted")
+
+    def _replace(self, **kw) -> "GraphTensors":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def n_cap(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def l_max(self) -> int:
+        return self.l_max_static
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+
+def capacity(max_elements: int) -> int:
+    """Pad capacity to a multiple of 128."""
+    return round_up(max(max_elements, 128), 128)
+
+
+def arena_capacity(max_elements: int, m: int) -> int:
+    """Upper-arena row capacity: expected rows N/(M-1) with a 3x margin, +1
+    for the reserved sink row."""
+    want = 3 * capacity(max_elements) // max(m - 1, 1) + 1
+    return round_up(max(want, 256), 128)
+
+
+class UpperView(NamedTuple):
+    """Adjacency view of one upper layer over the compact arena: node v's
+    neighbors at `level` are table[up_base[v] + level - 1] when
+    levels[v] >= level, else the all -1 sink row."""
+
+    table: torch.Tensor  # i32[T_cap, M]
+    up_base: torch.Tensor  # i32[N_cap]
+    levels: torch.Tensor  # i32[N_cap]
+    level: int  # >= 1
+
+    def rows_of(self, safe_ids):
+        """Arena row per node id (ids must be >= 0); sink row when the node
+        has no row at this layer."""
+        base = self.up_base[safe_ids]
+        ok = (self.levels[safe_ids] >= self.level) & (base >= 0)
+        return torch.where(ok, base + (self.level - 1), self.table.shape[0] - 1)
+
+
+def adj_take(adj, safe_ids):
+    """Gather adjacency rows for node ids (>= 0) from either a dense layer-0
+    table or an UpperView."""
+    safe_ids = safe_ids.long()
+    if isinstance(adj, UpperView):
+        return adj.table[adj.rows_of(safe_ids).long()]
+    return adj[safe_ids]
+
+
+def upper_view(graph: GraphTensors, level: int) -> UpperView:
+    return UpperView(table=graph.adj_up, up_base=graph.up_base,
+                     levels=graph.levels, level=level)
+
+
+def empty_graph(config: HnswConfig, max_elements: int,
+                device: torch.device | str) -> GraphTensors:
+    from ocaml_hnsw_tpu_torch.ops.quantize import storage_dtype
+
+    n_cap = capacity(max_elements)
+    t_cap = arena_capacity(max_elements, config.M)
+
+    def full(shape, fill, dtype):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return GraphTensors(
+        vectors=torch.zeros((n_cap, config.dim),
+                            dtype=storage_dtype(config.storage), device=device),
+        scales=full((n_cap,), 1.0, torch.float32),
+        norms=full((n_cap,), 0.0, torch.float32),
+        adj0=full((n_cap, config.M_max0), -1, torch.int32),
+        adj_up=full((t_cap, config.M), -1, torch.int32),
+        up_base=full((n_cap,), -1, torch.int32),
+        up_n=full((), 0, torch.int32),
+        levels=full((n_cap,), -1, torch.int32),
+        entry=full((), -1, torch.int32),
+        max_level=full((), -1, torch.int32),
+        n=full((), 0, torch.int32),
+        deleted=full((n_cap,), False, torch.bool),
+        l_max_static=config.derived_max_level(max_elements),
+    )
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from the JAX package
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def graph_from_numpy(arrays, l_max_static: int,
+                     device: torch.device | str) -> GraphTensors:
+    """GraphTensors from a mapping of field name -> array (numpy, or anything
+    np.asarray takes, such as a JAX GraphTensors' fields)."""
+    return GraphTensors(
+        **{f: _to_torch(arrays[f], device) for f in GraphTensors._fields},
+        l_max_static=int(l_max_static),
+    )
+
+
+def graph_to_numpy(g: GraphTensors) -> dict:
+    """Field name -> numpy array (bf16 vectors widen to f32: numpy has no
+    bfloat16)."""
+    out = {}
+    for f in GraphTensors._fields:
+        t = getattr(g, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[f] = t.numpy()
+    return out

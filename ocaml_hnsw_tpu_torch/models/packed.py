@@ -1,0 +1,332 @@
+"""Packed inline-neighbor query engine, ported from
+`ocaml_hnsw_tpu/models/packed.py` (bits=8, unfused payload).
+
+Per node, the payload stores its deg neighbours' vectors as int8 on ONE
+global scale s (x8 = round(x/s)), so expanding a node reads one contiguous
+[deg, d_pad] slab instead of deg scattered rows.  Queries are quantized on
+the same grid, and
+
+    d = s²·(‖x8‖² − 2·x8·q8) + ‖q‖²           (l2)
+    d = 1 − s²·(x8·q8)                         (ip / cosine)
+
+where ‖x8‖² is a precomputed exact int32.  Each beam iteration's select →
+gather → score runs through the packed-score kernel (K1,
+`ops/kernels/payload_score.py`), whose dot is exact int32 (the JAX engine
+rounds each product to bf16).  Beam state stays in the f32 distance domain,
+merged by the same bitonic networks as the JAX package, and a final exact
+f32 rerank (K2) makes the returned order exact.
+
+Layout: the JAX package stores the payload as [N_cap·C, W] chunk rows (a
+TPU gather choice); this port stores the same bytes as [N_cap, deg, d_pad],
+the same row-major order, so `packed_from_numpy` is a reshape.  The int4
+payload (`bits=4`), fused meta rows, `deg_limit` and build-time payload
+upkeep (`with_dist`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ocaml_hnsw_tpu_torch.models.graph import GraphTensors
+from ocaml_hnsw_tpu_torch.models.search import (
+    SeedIndex, descend, preprocess_queries, seed_entries,
+)
+from ocaml_hnsw_tpu_torch.ops.bitset import first_occurrence_mask
+from ocaml_hnsw_tpu_torch.ops.distance import INF, dists_to_ids, query_norms
+from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import packed_score
+from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+from ocaml_hnsw_tpu_torch.ops.sortmerge import (
+    entries_to_beam, merge_into_beam, topk_ascending,
+)
+from ocaml_hnsw_tpu_torch.utils import round_up
+
+#: node rows per slab of pack_graph (bounds the [slab, deg, D] f32 gather:
+#: 1 GB at deg=32, D=128)
+PACK_SLAB_ROWS = 65536
+
+
+@dataclasses.dataclass
+class PackedGraph:
+    """Inline-neighbor payload tensors.
+
+    pay:   int8[N_cap, deg, d_pad]  node i's neighbours' int8 vectors
+    meta:  int32[N_cap, 2·deg]      [adjacency ids | int32 norms ‖x8‖²];
+                                    ids are -1 sentinels as in adj0
+    scale: f32[]                    the global quantization scale s
+    """
+
+    pay: torch.Tensor
+    meta: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def deg(self) -> int:
+        return self.meta.shape[1] // 2
+
+    @property
+    def n_cap(self) -> int:
+        return self.meta.shape[0]
+
+    @property
+    def d_pad(self) -> int:
+        return self.pay.shape[2]
+
+
+def packed_from_numpy(pay, meta, scale,
+                      device: torch.device | str) -> PackedGraph:
+    """PackedGraph from the JAX package's arrays (`np.asarray` of its pay
+    [N_cap·C, W], meta and scale): the payload bytes are row-major per node,
+    so [N_cap·C, W] reshapes to [N_cap, deg, d_pad]."""
+    meta = np.asarray(meta)
+    n_cap, deg = meta.shape[0], meta.shape[1] // 2
+    pay = np.asarray(pay).reshape(n_cap, deg, -1)
+    return PackedGraph(
+        pay=torch.from_numpy(np.array(pay, copy=True)).to(device),
+        meta=torch.from_numpy(np.array(meta, copy=True)).to(device),
+        scale=torch.tensor(float(np.asarray(scale)), dtype=torch.float32,
+                           device=device),
+    )
+
+
+def pack_d_pad(dim: int) -> int:
+    """Payload inner dim, padded to 128 bytes as in the JAX package (whole
+    16-byte vector loads per row on the card)."""
+    return round_up(dim, 128)
+
+
+def _int8_sqnorm(y):
+    """Exact ‖y‖² of int8 rows as int32."""
+    yi = y.to(torch.int32)
+    return torch.sum(yi * yi, dim=-1, dtype=torch.int32)
+
+
+@torch.no_grad()
+def pack_graph(graph: GraphTensors, metric: str, scale=None,
+               with_dist: bool = False, bits: int = 8,
+               fused: bool = False) -> PackedGraph:
+    """Build the inline-neighbor payload from a built graph, in slabs of
+    nodes.  The global scale is max |component| of the stored vectors
+    (dequantized) over 127 — or the caller's `scale` — so integer-grid data
+    quantizes exactly.  Bytes, norms and scale equal the JAX package's
+    `pack_graph` (which multiplies by 1/s, as here)."""
+    if get_metric(metric).matmul_score is None:
+        raise ValueError(
+            f"metric {metric!r} has no matmul_score; the packed engine's "
+            "int8 dot path needs one"
+        )
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if bits != 8 or fused or with_dist:
+        raise NotImplementedError(
+            "pack_graph: bits=4, fused and with_dist are not ported yet")
+    vectors, scales, adj0 = graph.vectors, graph.scales, graph.adj0
+    dev = vectors.device
+    n_cap, deg = adj0.shape
+    d = graph.dim
+    d_pad = pack_d_pad(d)
+    if scale is None:
+        vmax = torch.amax(torch.abs(vectors.float()))
+        if vectors.dtype == torch.int8:
+            vmax = torch.amax(torch.abs(vectors.float()) * scales[:, None])
+        s = torch.clamp_min(vmax / 127.0, 1e-30)
+    else:
+        s = torch.clamp_min(torch.as_tensor(scale, dtype=torch.float32,
+                                            device=dev), 1e-30)
+    inv_s = 1.0 / s
+    pay = torch.zeros((n_cap, deg, d_pad), dtype=torch.int8, device=dev)
+    meta = torch.zeros((n_cap, 2 * deg), dtype=torch.int32, device=dev)
+    for start in range(0, n_cap, PACK_SLAB_ROWS):
+        a = adj0[start:start + PACK_SLAB_ROWS]  # [S, deg]
+        safe = a.clamp_min(0).long()
+        rows = vectors[safe].float()
+        if vectors.dtype == torch.int8:
+            rows = rows * scales[safe][:, :, None]
+        y = torch.clamp(torch.round(rows * inv_s), -127, 127).to(torch.int8)
+        pay[start:start + PACK_SLAB_ROWS, :, :d] = y
+        meta[start:start + PACK_SLAB_ROWS, :deg] = a
+        meta[start:start + PACK_SLAB_ROWS, deg:] = _int8_sqnorm(y)
+    return PackedGraph(pay=pay, meta=meta, scale=s.to(torch.float32))
+
+
+def quantize_queries(q, scale):
+    """Round preprocessed queries onto the payload's s-grid (int8[B, D])."""
+    return torch.clamp(torch.round(q / scale), -127, 127).to(torch.int8)
+
+
+def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
+               expand: int):
+    """One iteration of the packed beam loop as a (pk, d) -> (pk, d)
+    closure over this (sub)batch's query tensors."""
+    expand = max(1, min(expand, ef))
+    ar = torch.arange(1, expand + 1, dtype=torch.int32, device=q8.device)
+
+    def body(beam_pk, beam_d):
+        # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask)
+        unexp = (beam_pk & 1) == 0
+        slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
+        sel_mask = unexp & (slot <= expand)
+        beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
+        oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
+        pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
+        active = torch.any(oh, dim=2)
+        nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
+        # gather + score of the E·deg inlined neighbours (K1)
+        cand_ids, cand_d = packed_score(nodes, packed.meta, packed.pay, q8,
+                                        qn, packed.scale, needs_norms)
+        in_beam = torch.any(
+            cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
+        fresh = (cand_ids >= 0) & ~in_beam & first_occurrence_mask(cand_ids)
+        cand_pk = torch.where(fresh, cand_ids * 2, -1)  # enter unexpanded
+        cand_d = torch.where(fresh, cand_d, INF)
+        beam_d, (beam_pk,) = merge_into_beam(
+            beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef,
+        )
+        return beam_pk, beam_d
+
+    return body
+
+
+def _entries_to_packed_beam(entry_ids, entry_d, ef: int):
+    """Dedup entries and build the sorted (pk, d) beam state.  pk = 2·id +
+    expanded packs both into one int32; sentinel -1 decodes to (id=-1,
+    expanded) with an arithmetic shift."""
+    uniq = first_occurrence_mask(entry_ids) & (entry_ids >= 0)
+    entry_ids = torch.where(uniq, entry_ids, -1)
+    entry_d = torch.where(uniq, entry_d, INF)
+    beam_ids, beam_d = entries_to_beam(entry_ids, entry_d, ef)
+    beam_pk = torch.where(beam_ids < 0, -1, beam_ids * 2)
+    return beam_pk, beam_d
+
+
+def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
+                                 entry_d, ef: int, needs_norms: bool,
+                                 max_iters: int, expand: int = 2,
+                                 ways: int = 2):
+    """Interleaved loop: the batch splits into `ways` independent
+    sub-batches, each run for exactly `max_iters` iterations (no early
+    exit, as in the JAX package).  Results equal running each sub-batch
+    through `beam_search_layer_packed` with early_exit=False."""
+    b = q8.shape[0]
+    h = b // ways
+    slices = [slice(i * h, (i + 1) * h) for i in range(ways)]
+    bodies = [_beam_body(packed, q8[s], qn[s], ef, needs_norms, expand)
+              for s in slices]
+    state = [_entries_to_packed_beam(entry_ids[s], entry_d[s], ef)
+             for s in slices]
+    for _ in range(max_iters):
+        state = [fn(pk, d) for fn, (pk, d) in zip(bodies, state)]
+    ids = torch.cat([pk for pk, _ in state], dim=0) >> 1
+    d = torch.cat([d for _, d in state], dim=0)
+    return ids, d, max_iters
+
+
+def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
+                             ef: int, needs_norms: bool, max_iters: int,
+                             expand: int = 4, early_exit: bool = True,
+                             init_pk=None, init_d=None,
+                             raw_state: bool = False):
+    """The packed layer-0 beam loop: per iteration, expand the E nearest
+    unexpanded beam nodes and score their inlined neighbours (K1), dedup
+    against the beam, merge.  Returns (ids, d, iters).
+
+    early_exit=True stops when every beam is fully expanded (one host sync
+    per iteration); False runs exactly max_iters.  init_pk/init_d resume
+    from a previous phase's raw (pk, d) state; raw_state=True returns it."""
+    step = _beam_body(packed, q8, qn, ef, needs_norms, expand)
+    if init_pk is not None:
+        beam_pk, beam_d = init_pk, init_d
+    else:
+        beam_pk, beam_d = _entries_to_packed_beam(entry_ids, entry_d, ef)
+    it = 0
+    while it < max_iters:
+        if early_exit and not bool(torch.any((beam_pk & 1) == 0)):
+            break
+        beam_pk, beam_d = step(beam_pk, beam_d)
+        it += 1
+    if raw_state:
+        return beam_pk, beam_d, it
+    return beam_pk >> 1, beam_d, it
+
+
+@torch.no_grad()
+def knn_search_packed(
+    graph: GraphTensors,
+    packed: PackedGraph,
+    queries,  # f32[B, D]
+    k: int,
+    ef: int,
+    metric: str,
+    max_iters: int | None = None,
+    expand: int = 4,
+    seeds: SeedIndex | None = None,
+    seed_e: int = 16,
+    rerank_k: int | None = None,
+    deg_limit: int | None = None,
+    early_exit: bool = True,
+    bits: int = 8,
+    expand_schedule: tuple | None = None,
+    fused: bool = False,
+    interleave: int = 1,
+):
+    """Alg 5 on the packed engine: seed-scan (or greedy) entry, packed int8
+    beam at layer 0, then an exact-f32 rerank of the top `rerank_k` beam
+    entries.  Returns (ids i32[B, k], d f32[B, k]) ascending, -1/+inf
+    padded, tombstones filtered — the JAX package's contract."""
+    if bits != 8 or fused or deg_limit is not None:
+        raise NotImplementedError(
+            "packed engine: bits=4, fused and deg_limit are not ported yet")
+    ef = max(ef, k)
+    if max_iters is None:
+        max_iters = max(64, (8 * ef) // max(1, expand))
+    if rerank_k is None:
+        rerank_k = min(ef, max(2 * k, 16))
+    rerank_k = max(k, min(rerank_k, ef))
+    needs_norms = get_metric(metric).needs_norms
+    q = preprocess_queries(queries, metric)
+    qn = query_norms(q, metric)
+    if seeds is not None:
+        entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e, metric)
+    else:
+        cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
+        entry_ids, entry_d = cur[:, None], cur_d[:, None]
+    q8 = quantize_queries(q, packed.scale)
+    if packed.d_pad > q8.shape[1]:
+        q8 = torch.nn.functional.pad(q8, (0, packed.d_pad - q8.shape[1]))
+    if expand_schedule is not None:
+        # phased beam, e.g. ((8, 2), (2, 26)): wide expansions fill the beam,
+        # then it cruises narrow; expanded flags carry across phases
+        state = (None, None)
+        for e_p, mi_p in expand_schedule:
+            state = beam_search_layer_packed(
+                packed, q8, qn, entry_ids, entry_d, ef,
+                needs_norms=needs_norms, max_iters=mi_p, expand=e_p,
+                early_exit=False, init_pk=state[0], init_d=state[1],
+                raw_state=True,
+            )[:2]
+        ids, d = state[0] >> 1, state[1]
+    elif interleave > 1 and queries.shape[0] % interleave == 0:
+        # independent sub-batches, fixed max_iters (early_exit ignored)
+        ids, d, _ = beam_search_layer_packed_duo(
+            packed, q8, qn, entry_ids, entry_d, ef,
+            needs_norms=needs_norms, max_iters=max_iters, expand=expand,
+            ways=interleave,
+        )
+    else:
+        ids, d, _ = beam_search_layer_packed(
+            packed, q8, qn, entry_ids, entry_d, ef,
+            needs_norms=needs_norms, max_iters=max_iters, expand=expand,
+            early_exit=early_exit,
+        )
+    # tombstone filter on the approx beam, keep top rerank_k live candidates
+    dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
+    d = torch.where(dead, INF, d)
+    _, top_ids = topk_ascending(d, torch.where(dead, -1, ids), rerank_k)
+    # exact f32 rerank (K2) -> exact final ordering
+    d_exact = dists_to_ids(graph.vectors, graph.scales, graph.norms, q, qn,
+                           top_ids, metric)
+    out_d, out_ids = topk_ascending(d_exact, top_ids, k)
+    out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
+    return out_ids, out_d

@@ -1,0 +1,73 @@
+"""Gather-distance (K2): `gather_dists` launches `csrc/gather_dist.cu` on CUDA
+tensors; `gather_dists_plain` is the same function in plain torch.
+
+Replaces the TPU kernel `ocaml_hnsw_tpu/ops/pallas/gather_dist.py::gather_l2`
+under the wider contract of `ocaml_hnsw_tpu/ops/distance.py::dists_to_ids`:
+d[b, k] = dist(q[b], dequant(vectors[ids[b, k]])) for rows stored as f32,
+bf16 or int8 (with per-row `scales`), l2 or ip/cosine, +inf at id -1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+
+#: built-in metrics the kernel computes: 0 = l2, 1 = 1 - dot
+KERNEL_METRICS = {"l2": 0, "ip": 1, "cosine": 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def gather_dists_plain(vectors, scales, q, ids, metric: str):
+    """Plain torch version: gather, dequantize, `pair_dist`, +inf at -1."""
+    safe = ids.clamp_min(0).long()
+    rows = vectors[safe]  # [B, K, D]
+    if rows.dtype == torch.int8:
+        rows = rows.float() * scales[safe][:, :, None]
+    elif rows.dtype != torch.float32:
+        rows = rows.float()
+    d = get_metric(metric).pair_dist(rows, q)
+    return torch.where(ids < 0, float("inf"), d)
+
+
+def gather_dists(vectors, scales, q, ids, metric: str):
+    """f32[B, K] distances d(q_b, vectors[ids[b, k]]).
+
+    vectors [N, D] f32/bf16/int8, scales f32[N], q f32[B, D], ids i32[B, K].
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise: there is no fallback)."""
+    if not vectors.is_cuda:
+        return gather_dists_plain(vectors, scales, q, ids, metric)
+    if metric not in KERNEL_METRICS:
+        raise NotImplementedError(
+            f"gather_dists: no CUDA kernel for registered metric {metric!r}")
+    b, k = ids.shape
+    n, dim = vectors.shape
+    if vectors.dtype not in _DTYPES:
+        raise TypeError(f"gather_dists: unsupported row dtype {vectors.dtype}")
+    if q.dtype != torch.float32 or q.shape != (b, dim):
+        raise ValueError(f"gather_dists: q must be f32[{b}, {dim}], got "
+                         f"{q.dtype}{tuple(q.shape)}")
+    if ids.dtype != torch.int32 or scales.dtype != torch.float32 \
+            or scales.shape != (n,):
+        raise TypeError("gather_dists: ids must be int32 and scales f32[N]")
+    for t in (scales, q, ids):
+        if t.device != vectors.device:
+            raise ValueError("gather_dists: tensors on different devices")
+    vectors, scales = vectors.contiguous(), scales.contiguous()
+    q, ids = q.contiguous(), ids.contiguous()
+    out = torch.empty((b, k), dtype=torch.float32, device=vectors.device)
+    lib = _lib.library()
+    with torch.cuda.device(vectors.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ohnsw_gather_dists(
+            vectors.data_ptr(), _DTYPES[vectors.dtype], scales.data_ptr(),
+            q.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k, dim,
+            KERNEL_METRICS[metric], stream)
+    _lib.check(status, "gather_dists")
+    gather_dists.launches += 1
+    return out
+
+
+gather_dists.launches = 0  # kernel launches (not counting plain-version calls)

@@ -1,0 +1,86 @@
+"""Packed score (K1): `packed_score` launches `csrc/payload_score.cu` on CUDA
+tensors; `packed_score_plain` is the same function in plain torch.
+
+Replaces the TPU kernel `ocaml_hnsw_tpu/ops/pallas/payload_score.py::
+payload_score` and the inline expression the JAX engine runs in its place
+(`ocaml_hnsw_tpu/models/packed.py`, `_beam_body`): for each query b and
+expanded node nodes[b, e], the node's deg neighbour ids and their distances
+
+    l2:        s²·(‖x8‖² − 2·x8·q8) + ‖q‖²
+    ip/cosine: 1 − s²·(x8·q8)
+
+with the dot exact in int32 (the JAX engine rounds each product to bf16), and
+id −1 / distance +inf where the node is −1 or the adjacency slot is empty.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+
+
+def packed_score_plain(nodes, meta, pay, q8, qn, scale, needs_norms: bool):
+    """Plain torch version.  nodes i32[B, E]; meta i32[N, 2·deg]; pay
+    int8[N, deg, d_pad]; q8 int8[B, d_pad]; qn f32[B]; scale f32 scalar.
+    Returns (cand_ids i32[B, E·deg], cand_d f32[B, E·deg])."""
+    b = nodes.shape[0]
+    deg = pay.shape[1]
+    safe = nodes.clamp_min(0).long()
+    mrow = meta[safe]  # [B, E, 2·deg]
+    nbrs = torch.where((nodes >= 0)[:, :, None], mrow[:, :, :deg], -1)
+    vec = pay[safe].to(torch.int32)  # [B, E, deg, d_pad]
+    dot = torch.sum(vec * q8.to(torch.int32)[:, None, None, :], dim=-1,
+                    dtype=torch.int32)
+    s2 = scale * scale
+    if needs_norms:
+        d = s2 * (mrow[:, :, deg:] - 2 * dot).float() + qn[:, None, None]
+    else:
+        d = 1.0 - s2 * dot.float()
+    cand_ids = nbrs.reshape(b, -1)
+    cand_d = torch.where(cand_ids < 0, float("inf"), d.reshape(b, -1))
+    return cand_ids, cand_d
+
+
+def packed_score(nodes, meta, pay, q8, qn, scale, needs_norms: bool):
+    """See `packed_score_plain`.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise: there is no fallback).  `scale`
+    stays a device tensor, so a beam iteration needs no host sync."""
+    if not pay.is_cuda:
+        return packed_score_plain(nodes, meta, pay, q8, qn, scale, needs_norms)
+    b, e = nodes.shape
+    n_cap, deg, d_pad = pay.shape
+    if pay.dtype != torch.int8 or q8.dtype != torch.int8:
+        raise TypeError("packed_score: pay and q8 must be int8")
+    if nodes.dtype != torch.int32 or meta.dtype != torch.int32:
+        raise TypeError("packed_score: nodes and meta must be int32")
+    if meta.shape != (n_cap, 2 * deg) or q8.shape != (b, d_pad) \
+            or qn.shape != (b,) or qn.dtype != torch.float32:
+        raise ValueError("packed_score: shapes disagree (meta [N, 2·deg], "
+                         "q8 [B, d_pad], qn f32[B])")
+    if scale.numel() != 1 or scale.dtype != torch.float32:
+        raise ValueError("packed_score: scale must be one f32 on the device")
+    if d_pad % 16:
+        raise ValueError("packed_score: d_pad must be a multiple of 16")
+    for t in (nodes, meta, q8, qn, scale):
+        if t.device != pay.device:
+            raise ValueError("packed_score: tensors on different devices")
+    nodes, meta, q8 = nodes.contiguous(), meta.contiguous(), q8.contiguous()
+    pay, qn = pay.contiguous(), qn.contiguous()
+    if pay.data_ptr() % 16 or q8.data_ptr() % 16:
+        raise ValueError("packed_score: pay and q8 must be 16-byte aligned")
+    cand_ids = torch.empty((b, e * deg), dtype=torch.int32, device=pay.device)
+    cand_d = torch.empty((b, e * deg), dtype=torch.float32, device=pay.device)
+    lib = _lib.library()
+    with torch.cuda.device(pay.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ohnsw_packed_score(
+            nodes.data_ptr(), meta.data_ptr(), pay.data_ptr(), q8.data_ptr(),
+            qn.data_ptr(), scale.data_ptr(), cand_ids.data_ptr(),
+            cand_d.data_ptr(), b, e, deg, d_pad, int(needs_norms), stream)
+    _lib.check(status, "packed_score")
+    packed_score.launches += 1
+    return cand_ids, cand_d
+
+
+packed_score.launches = 0  # kernel launches (not counting plain-version calls)

@@ -1,0 +1,108 @@
+"""Gather-distance (K2) of the torch port against the JAX package.
+
+On the CPU the wrapper runs its plain torch version (the CUDA kernel is held
+against that version on the card by chip_smoke.py).  The plain version is
+checked here against the TPU kernel it replaces, `gather_l2` in Pallas
+interpret mode, and against the JAX `dists_to_ids` whose wider contract it
+takes (f32 / bf16 / int8 rows, l2 / ip / cosine, -1 ids).  Tolerance
+rtol = atol = 1e-4: the summation order differs between the packages."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ocaml_hnsw_tpu.ops.distance import dists_to_ids as jax_dists_to_ids
+from ocaml_hnsw_tpu.ops.pallas import gather_l2
+from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
+
+from ocaml_hnsw_tpu_torch.ops.distance import dists_to_ids
+from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
+    gather_dists, gather_dists_plain,
+)
+from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(seed, n, d, b, k, with_sentinels=True):
+    rng = np.random.RandomState(seed)
+    vecs = rng.randn(n, d).astype(np.float32)
+    lo = -1 if with_sentinels else 0
+    ids = rng.randint(lo, n, size=(b, k)).astype(np.int32)
+    q = rng.randn(b, d).astype(np.float32)
+    return vecs, ids, q
+
+
+class TestAgainstPallasKernel:
+    @pytest.mark.parametrize("n,d,b,k", [(256, 128, 16, 4), (64, 32, 8, 8)])
+    def test_plain_matches_gather_l2_interpret(self, n, d, b, k):
+        vecs, ids, q = _inputs(0, n, d, b, k, with_sentinels=False)
+        ref = np.asarray(gather_l2(jnp.asarray(vecs), jnp.asarray(ids),
+                                   jnp.asarray(q), tb=8, interpret=True))
+        ones = torch.ones(n)
+        out = gather_dists_plain(torch.from_numpy(vecs), ones,
+                                 torch.from_numpy(q), torch.from_numpy(ids),
+                                 "l2")
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+class TestAgainstDistsToIds:
+    @pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+    def test_matches_jax(self, storage, metric):
+        vecs, ids, q = _inputs(1, 300, 40, 12, 24)
+        if metric == "cosine":  # stored and queried normalized
+            vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+        jrows, jscales, jnorms = jax_quantize_rows(jnp.asarray(vecs), storage)
+        ref = np.asarray(jax_dists_to_ids(
+            jrows, jscales, jnorms, jnp.asarray(q), jnp.zeros(12),
+            jnp.asarray(ids), metric))
+        rows, scales, norms = quantize_rows(torch.from_numpy(vecs), storage)
+        out = dists_to_ids(rows, scales, norms, torch.from_numpy(q),
+                           torch.zeros(12), torch.from_numpy(ids), metric)
+        assert out.dtype == torch.float32 and out.shape == (12, 24)
+        np.testing.assert_array_equal(np.isinf(out.numpy()), ids < 0)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+    def test_cpu_wrapper_is_plain_version(self):
+        vecs, ids, q = _inputs(2, 100, 16, 4, 8)
+        args = (torch.from_numpy(vecs), torch.ones(100), torch.from_numpy(q),
+                torch.from_numpy(ids), "l2")
+        before = gather_dists.launches
+        assert torch.equal(gather_dists(*args), gather_dists_plain(*args))
+        assert gather_dists.launches == before  # no kernel ran
+
+    def test_registered_metric_on_cpu(self):
+        from ocaml_hnsw_tpu_torch.ops import metrics
+
+        metrics.register_metric(
+            "l1_gather_test", lambda r, q: abs(r - q[..., None, :]).sum(-1))
+        try:
+            vecs, ids, q = _inputs(3, 50, 8, 3, 5)
+            out = gather_dists(torch.from_numpy(vecs), torch.ones(50),
+                               torch.from_numpy(q), torch.from_numpy(ids),
+                               "l1_gather_test")
+            want = np.abs(vecs[np.maximum(ids, 0)] - q[:, None]).sum(-1)
+            want = np.where(ids < 0, np.inf, want)
+            np.testing.assert_allclose(out.numpy(), want, rtol=1e-5)
+        finally:
+            metrics.unregister_metric("l1_gather_test")
+
+
+class TestKernelBuild:
+    def test_library_name_hashes_sources(self):
+        p = _lib.library_path()
+        assert p.parent == _lib.BUILD_DIR
+        assert p.name.startswith("libohnsw_kernels_") and p.suffix == ".so"
+        assert p == _lib.library_path()  # stable for unchanged sources
+        assert sorted(s.name for s in _lib.CSRC.glob("*.cu")) == [
+            "gather_dist.cu", "payload_score.cu"]
+
+    def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+        monkeypatch.setenv("PATH", str(tmp_path))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _lib._nvcc()

@@ -1,0 +1,129 @@
+"""Packed score (K1) of the torch port.
+
+The TPU kernel `payload_score` has no interpret mode, so it cannot run on
+the CPU; the JAX engine's inline expression that does the same job
+(`ocaml_hnsw_tpu/models/packed.py`, `_beam_body`, the non-fused bits=8
+branch) stands in for it.  The port's plain version is held
+
+  * against an exact NumPy int64 dot: ids exactly equal, distances at
+    rtol 1e-6 (the same f32 epilogue);
+  * against the JAX expression on the same PackedGraph: ids equal, and
+    distances within the bf16-product bound — the JAX engine rounds each
+    int8 product to bf16, so |Δdot| ≤ 2⁻⁸·Σ_d |x8·q8|, which moves the l2
+    distance by up to 2·s²·|Δdot| (plus f32 rounding of the terms)."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ocaml_hnsw_tpu.config import HnswConfig as JaxConfig
+from ocaml_hnsw_tpu.models.bulk import bulk_build as jax_bulk_build
+from ocaml_hnsw_tpu.models.packed import pack_graph as jax_pack_graph
+
+from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
+from ocaml_hnsw_tpu_torch.models.packed import (
+    packed_from_numpy, quantize_queries,
+)
+from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
+    packed_score, packed_score_plain,
+)
+
+B, E = 64, 2
+
+
+@pytest.fixture(scope="module")
+def packs():
+    data = clustered(600, 20, n_clusters=8, seed=4)
+    g = jax_bulk_build(data, JaxConfig(dim=20, M=6), knn_k=12, batch=256)
+    jp = jax_pack_graph(g, "l2")
+    tp = packed_from_numpy(np.asarray(jp.pay), np.asarray(jp.meta),
+                           np.asarray(jp.scale), "cpu")
+    rng = np.random.RandomState(0)
+    nodes = rng.randint(-1, 600, size=(B, E)).astype(np.int32)
+    nodes[0, 1] = -1
+    q = queries_like(data, B, seed=6)
+    q8 = quantize_queries(torch.from_numpy(q), tp.scale)
+    q8 = torch.nn.functional.pad(q8, (0, tp.d_pad - q8.shape[1]))
+    qn = torch.from_numpy((q * q).sum(1))
+    return jp, tp, torch.from_numpy(nodes), q8, qn
+
+
+def _numpy_exact(tp, nodes, q8, qn, needs_norms):
+    pay = tp.pay.numpy().astype(np.int64)
+    meta = tp.meta.numpy().astype(np.int64)
+    nodes = nodes.numpy()
+    deg = tp.deg
+    safe = np.maximum(nodes, 0)
+    ids = np.where(nodes[:, :, None] >= 0, meta[safe][:, :, :deg], -1)
+    dot = np.einsum("bejd,bd->bej", pay[safe], q8.numpy().astype(np.int64))
+    s2 = np.float32(tp.scale.numpy()) * np.float32(tp.scale.numpy())
+    if needs_norms:
+        t = (meta[safe][:, :, deg:] - 2 * dot).astype(np.float32)
+        d = s2 * t + qn.numpy()[:, None, None]
+    else:
+        d = np.float32(1.0) - s2 * dot.astype(np.float32)
+    ids = ids.reshape(B, -1)
+    return ids, np.where(ids < 0, np.inf, d.reshape(B, -1)), dot
+
+
+def _jax_inline(jp, nodes, q8, qn, needs_norms):
+    """The JAX engine's expression (packed.py, _beam_body, bits=8 unfused)."""
+    nodes = jnp.asarray(nodes.numpy())
+    b, expand = nodes.shape
+    deg, c_full = jp.deg, jp.chunks
+    c, stored = c_full, jp.d_pad
+    s2 = jp.scale * jp.scale
+    q16 = jnp.asarray(q8.numpy()).astype(jnp.bfloat16)
+    safe = jnp.maximum(nodes, 0)
+    mrow = jp.meta[safe]
+    nbrs = jnp.where((nodes >= 0)[:, :, None], mrow[:, :, :deg], -1)
+    nrm = mrow[:, :, deg:2 * deg].astype(jnp.float32)
+    cid = (safe[:, :, None] * c_full
+           + jnp.arange(c, dtype=jnp.int32)[None, None, :]).reshape(b, -1)
+    vec8 = jp.pay[cid].reshape(b, expand, deg, stored)
+    dot = jnp.sum(vec8.astype(jnp.bfloat16) * q16[:, None, None, :],
+                  axis=-1, dtype=jnp.float32)
+    if needs_norms:
+        d = s2 * (nrm - 2.0 * dot) + jnp.asarray(qn.numpy())[:, None, None]
+    else:
+        d = 1.0 - s2 * dot
+    return np.asarray(nbrs.reshape(b, -1)), np.asarray(d.reshape(b, -1))
+
+
+@pytest.mark.parametrize("needs_norms", [True, False])
+class TestPackedScore:
+    def test_plain_equals_exact_int_dot(self, packs, needs_norms):
+        _, tp, nodes, q8, qn = packs
+        ids, d = packed_score_plain(nodes, tp.meta, tp.pay, q8, qn, tp.scale,
+                                    needs_norms)
+        want_ids, want_d, _ = _numpy_exact(tp, nodes, q8, qn, needs_norms)
+        np.testing.assert_array_equal(ids.numpy(), want_ids)
+        np.testing.assert_allclose(d.numpy(), want_d, rtol=1e-6, atol=0)
+
+    def test_plain_within_bf16_bound_of_jax(self, packs, needs_norms):
+        jp, tp, nodes, q8, qn = packs
+        ids, d = packed_score_plain(nodes, tp.meta, tp.pay, q8, qn, tp.scale,
+                                    needs_norms)
+        j_ids, j_d = _jax_inline(jp, nodes, q8, qn, needs_norms)
+        np.testing.assert_array_equal(ids.numpy(), j_ids)
+        live = ids.numpy() >= 0
+        # Σ_d |x8·q8| per candidate, from the payload
+        pay = tp.pay.numpy().astype(np.int64)
+        safe = np.maximum(nodes.numpy(), 0)
+        absdot = np.einsum("bejd,bd->bej", np.abs(pay[safe]),
+                           np.abs(q8.numpy().astype(np.int64)))
+        s2 = float(tp.scale) ** 2
+        bound = 2.0 * s2 * 2.0 ** -8 * absdot.reshape(B, -1) \
+            + 1e-6 * (np.abs(j_d) + 1.0)
+        diff = np.abs(d.numpy() - j_d)
+        assert (diff[live] <= bound[live]).all(), diff[live].max()
+
+    def test_cpu_wrapper_is_plain_version(self, packs, needs_norms):
+        _, tp, nodes, q8, qn = packs
+        before = packed_score.launches
+        a = packed_score(nodes, tp.meta, tp.pay, q8, qn, tp.scale, needs_norms)
+        b = packed_score_plain(nodes, tp.meta, tp.pay, q8, qn, tp.scale,
+                               needs_norms)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert packed_score.launches == before
