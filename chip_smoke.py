@@ -1,19 +1,38 @@
 """Smoke run of the torch port on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain torch version at main-path shapes, then drives
-the main path at full SIFT1M scale (1M x 128-d, L2, M=16) through the public
-API — `Index.add_items` (bulk build) and `Index.knn_query` (packed engine) —
-and checks recall@10 against exact ground truth computed on the card.
+holds each against its plain torch version on edge cases and at main-path
+shapes, then drives the main path at full SIFT1M scale (1M x 128-d, L2,
+M=16) through the public API — `Index.add_items` (bulk build) and
+`Index.knn_query` (packed engine) — and checks recall@10 against exact
+ground truth computed on the card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the whole run
+    python3 chip_smoke.py --kernels-only  # build + kernel checks on
+                                          # synthetic data, no index
+
+Kernel times are medians of CUDA-event timings.  A spin kernel holds the
+stream while each timed call is enqueued, so host-side launch cost is not
+in the time, and a 128 MiB buffer (more than the 50 MB L2) is read before
+every rep, untimed, so each call finds its data out of L2 (a read leaves
+clean lines: a write would make the call pay for evicting dirty ones).
+Cold inputs are random ids; "real" inputs are
+captured from the main path itself (K1's nodes at the 10th beam iteration of
+an 8192-query batch, K2's seed and rerank ids of that batch, and one
+1024-row batch of the kNN table), also timed with the L2 flushed, so what
+reuse remains is the sharing of hub rows inside one call.  Each time stands
+beside its bound: the bytes the call must move (every distinct row or slab
+it touches read once, every output written once) over 3.35 TB/s, or its
+operations over the peak rate for their type if that is longer.
 
 Exits non-zero, printing no result, when no CUDA device is available.  The
-last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists each kernel with its launches on the main path, its largest
-difference from the plain version, and both versions' median times.
+last line of stdout is {"ok": true, "device": {...}}; the line before it is
+the card's name and power limit, and the line before that lists each kernel
+with its launches on the main path, its largest difference from the plain
+version, its times and bounds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import statistics
@@ -26,8 +45,12 @@ import torch
 
 from ocaml_hnsw_tpu_torch import Index
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
-from ocaml_hnsw_tpu_torch.models.packed import PackedGraph, quantize_queries
+from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
+from ocaml_hnsw_tpu_torch.models import flat as flat_mod
+from ocaml_hnsw_tpu_torch.models import packed as packed_mod
+from ocaml_hnsw_tpu_torch.models import search as search_mod
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+from ocaml_hnsw_tpu_torch.ops.kernels import gather_dist as k2_mod
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
     gather_dists, gather_dists_plain,
 )
@@ -44,20 +67,37 @@ QUERY_KNOBS = dict(k=10, ef=64, max_iters=29, rerank_k=32, expand=2,
                    interleave=2)
 RECALL_FLOOR = 0.90
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
-K1_RTOL = 1e-6  # the int32 dot is exact; both epilogues round alike
+# K1 must equal its plain version bit for bit (exact int32 dot, same
+# rounding in the epilogue)
+
+#: NVIDIA H100 SXM data sheet: memory rate, dense int8 and f32 (no tensor
+#: core) peaks
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+FLUSH_BYTES = 128 << 20
+SPIN_CYCLES = 2_000_000  # about 1 ms of spin ahead of each timed call
+CAPTURE_ITER = 9  # the beam loop's 10th iteration
+KNN_K = 64  # bulk_build's kNN table: k + 1 + 32 = 97 candidates reranked
+DEV = torch.device("cuda")
+NO_LIBRARY = ("no single PyTorch call computes it: a gather and a distance "
+              "are at least two calls (index_select, then a reduction)")
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events."""
+def device_ms(fn, flush=None, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call (module docstring)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.sum()  # evicts the call's data from L2 (docstring)
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -66,6 +106,123 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: int, ops: int, peak: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_cost(nodes, deg: int, d_pad: int) -> tuple[int, int]:
+    """(bytes, int8 ops) of one packed_score call on these nodes."""
+    live = nodes[nodes >= 0]
+    b, e = nodes.shape
+    nbytes = (int(torch.unique(live).numel()) * (deg * d_pad + 8 * deg)
+              + b * (d_pad + 4) + b * e * 4 + b * e * deg * 8)
+    return nbytes, 2 * int(live.numel()) * deg * d_pad
+
+
+def k2_cost(vec, ids, metric: str) -> tuple[int, int]:
+    """(bytes, f32 flops) of one gather_dists call on these ids."""
+    b, k = ids.shape
+    d = vec.shape[1]
+    live = ids[ids >= 0]
+    row = d * vec.element_size() + (4 if vec.dtype == torch.int8 else 0)
+    nbytes = (int(torch.unique(live).numel()) * row + b * d * 4
+              + b * k * 4 + b * k * 4)
+    return nbytes, (3 if metric == "l2" else 2) * int(live.numel()) * d
+
+
+def timed(row: dict, kernel, plain, nbytes: int, ops: int, peak: float,
+          flush) -> dict:
+    ms = device_ms(kernel, flush)
+    plain_ms = device_ms(plain, flush)
+    bms, by = bound(nbytes, ops, peak)
+    row.update(bytes=nbytes, bound_ms=bms, bound_by=by, ms=ms,
+               plain_ms=plain_ms, share=bms / ms)
+    return row
+
+
+def fmt(row: dict) -> str:
+    if "ms" not in row:
+        return f"max |err| {row['max_abs_err']:.3e}"
+    return (f"max |err| {row['max_abs_err']:.3e}; {row['bytes'] / 1e6:.1f} MB,"
+            f" bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}); "
+            f"kernel {row['ms'] * 1e3:.1f} us = {row['share']:.0%} of bound;"
+            f" plain {row['plain_ms'] * 1e3:.1f} us")
+
+
+def k1_case(label: str, args, flush=None, time_it: bool = False) -> dict:
+    """packed_score against its plain version: ids and distances equal."""
+    nodes, _, pay = args[0], args[1], args[2]
+    ids, d = packed_score(*args)
+    ids_ref, d_ref = packed_score_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(ids, ids_ref):
+        raise AssertionError(f"K1 {label}: candidate ids differ from plain")
+    if not torch.equal(d, d_ref):
+        raise AssertionError(f"K1 {label}: distances differ from plain")
+    fin = torch.isfinite(d_ref)
+    err = float((d[fin] - d_ref[fin]).abs().max()) if fin.any() else 0.0
+    _, deg, d_pad = pay.shape
+    row = dict(case=label, shape=[*nodes.shape, deg, d_pad], max_abs_err=err)
+    if time_it:
+        nbytes, ops = k1_cost(nodes, deg, d_pad)
+        timed(row, lambda: packed_score(*args),
+              lambda: packed_score_plain(*args), nbytes, ops,
+              INT8_OPS_PER_S, flush)
+    say(f"[K1 packed_score] {label} B={nodes.shape[0]} E={nodes.shape[1]} "
+        f"deg={deg} d_pad={d_pad}: equal; {fmt(row)}")
+    return row
+
+
+def k2_case(label: str, vec, scales, q, ids, metric: str, flush=None,
+            time_it: bool = False, path: str | None = None) -> dict:
+    """gather_dists against its plain version within K2_RTOL / K2_ATOL;
+    `path` ("vector" / "generic") asserts which path the plan takes."""
+    plan = k2_mod.launch_plan(
+        *ids.shape, vec.shape[1], vec.element_size(),
+        vec.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
+        k2_mod._sm_count(vec.device) if vec.is_cuda else 132)
+    got = "generic" if plan.cpl == 0 else "vector"
+    if path is not None and got != path:
+        raise AssertionError(f"K2 {label}: plan took the {got} path")
+    out = gather_dists(vec, scales, q, ids, metric)
+    ref = gather_dists_plain(vec, scales, q, ids, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=K2_RTOL, atol=K2_ATOL)
+    fin = torch.isfinite(ref)
+    err = float((out[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    row = dict(case=label, shape=[*ids.shape, vec.shape[1]],
+               dtype=str(vec.dtype).replace("torch.", ""), metric=metric,
+               path=got, max_abs_err=err)
+    if time_it:
+        nbytes, ops = k2_cost(vec, ids, metric)
+        timed(row, lambda: gather_dists(vec, scales, q, ids, metric),
+              lambda: gather_dists_plain(vec, scales, q, ids, metric),
+              nbytes, ops, F32_FLOPS_PER_S, flush)
+    say(f"[K2 gather_dists] {label} B={ids.shape[0]} K={ids.shape[1]} "
+        f"D={vec.shape[1]} {row['dtype']} {metric} ({got} path): "
+        f"agree; {fmt(row)}")
+    return row
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Keep the arguments of every call to `module.name` (a pass-through)."""
+    calls = []
+    real = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def phase_device() -> tuple[str, str]:
@@ -89,75 +246,276 @@ def phase_build_kernels() -> None:
     path = _lib.build()
     _lib.library()
     say(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    # ptxas -v, per kernel: "Compiling entry function", its spills, then
+    # its registers; one line each
+    kernels, fn, spill = [], "?", ""
     for line in _lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            kernels.append((fn, line.split(":", 1)[1].strip(), spill))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(k[0] for k in kernels),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [k[0] for k in kernels]
+    for name, (_, regs, spill) in zip(names, kernels):
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        say(f"[build] {name}: {regs}; {spill}")
 
 
-def check_gather_dists(data: np.ndarray) -> dict:
-    """K2 against its plain version at B=8192, K in {8, 32, 97}, every
-    storage dtype, l2 and ip, with -1 ids; rows from the main-path data."""
-    dev = torch.device("cuda")
-    gen = np.random.default_rng(3)
-    x = torch.from_numpy(data).to(dev)
+# ------------------------------------------------------------ edge cases
+def synthetic_packed(n: int, deg: int, d_pad: int, seed: int,
+                     empty: float = 0.1):
+    """A random int8 payload with meta [ids | norms], made on the device
+    from `seed`; `empty` of the slots are -1 (the norms are random too:
+    the kernel only carries them into the epilogue)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    pay = torch.randint(-127, 128, (n, deg, d_pad), dtype=torch.int8,
+                        device=DEV, generator=g)
+    ids = torch.randint(0, n, (n, deg), dtype=torch.int32, device=DEV,
+                        generator=g)
+    ids[torch.rand((n, deg), device=DEV, generator=g) < empty] = -1
+    norms = torch.randint(0, 1 << 21, (n, deg), dtype=torch.int32,
+                          device=DEV, generator=g)
+    return pay, torch.cat([ids, norms], dim=1)
+
+
+def k1_inputs(n: int, b: int, e: int, d_pad: int, gen, neg: float = 0.02):
+    dev = DEV
+    nodes = gen.integers(0, n, size=(b, e)).astype(np.int32)
+    nodes[gen.random((b, e)) < neg] = -1
+    if b:
+        nodes[0, :] = -1  # one query with nothing to expand
+    q8 = torch.from_numpy(
+        gen.integers(-127, 128, size=(b, d_pad), dtype=np.int8)).to(dev)
+    qn = torch.from_numpy(gen.random(b).astype(np.float32) * 100).to(dev)
+    return torch.from_numpy(nodes).to(dev), q8, qn
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` whose base address is one element past 16-byte
+    alignment."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_k1_edges(gen) -> list[dict]:
+    scale = torch.tensor([0.02], device=DEV)
+    rows = []
+    cases = [  # label, n, deg, d_pad, B, E
+        ("deg=48", 200_000, 48, 128, 4096, 2),
+        ("deg=33 meta off the ring", 50_000, 33, 128, 1000, 3),
+        ("d_pad=256", 20_000, 32, 256, 777, 2),
+        ("d_pad=768 (25.6 KB stages)", 20_000, 32, 768, 512, 2),
+        ("deg=64 d_pad=1024 (a warp per block)", 4_000, 64, 1024, 256, 2),
+        ("deg=128 d_pad=1024 (one stage)", 1_000, 128, 1024, 200, 2),
+        ("B=1 E=1", 1_000, 24, 128, 1, 1),
+    ]
+    for i, (label, n, deg, d_pad, b, e) in enumerate(cases):
+        pay, meta = synthetic_packed(n, deg, d_pad, seed=i)
+        nodes, q8, qn = k1_inputs(n, b, e, d_pad, gen)
+        if b == 1:
+            nodes.fill_(n - 1)
+        for needs_norms in (True, False):
+            tag = f"{label} {'l2' if needs_norms else 'ip'}"
+            rows.append(k1_case(tag, (nodes, meta, pay, q8, qn, scale,
+                                      needs_norms)))
+        if label == "deg=48":
+            args = (nodes.clone().fill_(-1), meta, pay, q8, qn, scale, True)
+            rows.append(k1_case("every node -1", args))
+            off = misaligned(meta)
+            assert off.data_ptr() % 16
+            rows.append(k1_case("meta base misaligned",
+                                (nodes, off, pay, q8, qn, scale, True)))
+        del pay, meta
+    check_k1_empty(scale)
+    return rows
+
+
+def check_k1_empty(scale) -> None:
+    """B = 0: an empty result and no launch."""
+    pay = torch.zeros((4, 32, 128), dtype=torch.int8, device=DEV)
+    meta = torch.zeros((4, 64), dtype=torch.int32, device=DEV)
+    q8 = torch.zeros((0, 128), dtype=torch.int8, device=DEV)
+    qn = torch.zeros((0,), dtype=torch.float32, device=DEV)
+    nodes = torch.empty((0, 2), dtype=torch.int32, device=DEV)
+    before = packed_score.launches
+    ids, _ = packed_score(nodes, meta, pay, q8, qn, scale, True)
+    if ids.shape != (0, 64) or packed_score.launches != before:
+        raise AssertionError("K1 B=0: wrong shape or a launch")
+    say("[K1 packed_score] B=0: empty result, no launch")
+
+
+def check_k2_edges(x: torch.Tensor, gen) -> list[dict]:
+    """Odd B and K on the vector path for every dtype and metric, and the
+    generic path: bf16 D=100, misaligned bases, rows wider than 1024."""
+    dev = x.device
     xn = x / torch.linalg.norm(x, dim=1, keepdim=True)
-    q = torch.from_numpy(queries_like(data, QPS_BATCH, seed=11)).to(dev)
-    qn = q / torch.linalg.norm(q, dim=1, keepdim=True)
-    worst, timing = 0.0, None
-    for metric, rows, qq in (("l2", x, q), ("ip", xn, qn)):
+    n = x.shape[0]
+
+    def ids_for(b, k, rows=n):
+        ids = gen.integers(-1, rows, size=(b, k)).astype(np.int32)
+        ids[:, 0] = -1
+        return torch.from_numpy(ids).to(dev)
+
+    def queries(b, d, unit):
+        q = torch.from_numpy(gen.standard_normal((b, d)).astype(np.float32))
+        q = q.to(dev)
+        return q / torch.linalg.norm(q, dim=1, keepdim=True) if unit else q
+
+    rows = []
+    ids = ids_for(1000, 13)
+    for metric, base in (("l2", x), ("ip", xn)):
+        q = queries(1000, base.shape[1], metric == "ip")
         for storage in ("f32", "bf16", "int8"):
-            vec, scales, _ = quantize_rows(rows, storage)
-            for k in (8, 32, 97):
-                ids = gen.integers(-1, N, size=(QPS_BATCH, k)).astype(np.int32)
-                ids[:, 0] = -1
-                ids_t = torch.from_numpy(ids).to(dev)
-                out = gather_dists(vec, scales, qq, ids_t, metric)
-                ref = gather_dists_plain(vec, scales, qq, ids_t, metric)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(out, ref, rtol=K2_RTOL,
-                                           atol=K2_ATOL)
-                fin = torch.isfinite(ref)
-                err = float((out[fin] - ref[fin]).abs().max())
-                worst = max(worst, err)
-                if (metric, storage, k) == ("l2", "f32", 32):  # rerank shape
-                    timing = (
-                        median_ms(lambda: gather_dists(vec, scales, qq,
-                                                       ids_t, metric)),
-                        median_ms(lambda: gather_dists_plain(
-                            vec, scales, qq, ids_t, metric)),
-                    )
-    say(f"[K2 gather_dists] 18 cases agree (rtol=atol={K2_RTOL}); "
-        f"max |err| {worst:.3e}; B={QPS_BATCH} K=32 f32 l2: kernel "
-        f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+            vec, sc, _ = quantize_rows(base, storage)
+            rows.append(k2_case("odd B, K", vec, sc, q, ids, metric,
+                                path="vector"))
+        narrow = base[:, :100].contiguous()
+        vec, sc, _ = quantize_rows(narrow, "bf16")
+        rows.append(k2_case("bf16 D=100", vec, sc, q[:, :100].contiguous(),
+                            ids, metric, path="generic"))
+    q = queries(1000, x.shape[1], False)
+    part = min(n, 200_000)
+    for storage in ("f32", "int8"):
+        vec, sc, _ = quantize_rows(x[:part], storage)
+        rows.append(k2_case("base misaligned", misaligned(vec), sc, q,
+                            ids_for(1000, 13, part), "l2", path="generic"))
+    wide = torch.from_numpy(
+        gen.standard_normal((20_000, 768)).astype(np.float32)).to(dev)
+    qw = queries(300, 768, False)
+    for storage in ("f32", "bf16", "int8"):
+        vec, sc, _ = quantize_rows(wide, storage)
+        rows.append(k2_case("D=768", vec, sc, qw, ids_for(300, 37, 20_000),
+                            "l2", path="vector"))
+    tiny = torch.from_numpy(
+        gen.standard_normal((5_000, 16)).astype(np.float32)).to(dev)
+    vec, sc, _ = quantize_rows(tiny, "int8")
+    rows.append(k2_case("int8 D=16 (a lane per row)", vec, sc,
+                        queries(64, 16, False), ids_for(64, 45, 5_000), "l2",
+                        path="vector"))
+    vec, sc, _ = quantize_rows(wide.repeat(1, 3)[:2_000], "f32")
+    rows.append(k2_case("D=2304", vec, sc, queries(50, 2304, False),
+                        ids_for(50, 9, 2_000), "l2", path="generic"))
+    return rows
 
 
-def check_packed_score(packed: PackedGraph, queries: np.ndarray) -> dict:
-    """K1 against its plain version at the main-path shape (B=8192, E=2)
-    on the index's own payload."""
+# ------------------------------------------------------- main-path shapes
+def check_k1_main(packed, qps_queries, captured, flush, gen) -> list[dict]:
+    """On the index's own 1M payload: random nodes (cold) and the nodes of
+    the main path's 10th beam iteration (real), at B=4096 (one interleaved
+    half, the main path's call) and B=8192."""
     dev = packed.pay.device
-    gen = np.random.default_rng(4)
-    nodes = gen.integers(-1, N, size=(QPS_BATCH, 2)).astype(np.int32)
-    nodes_t = torch.from_numpy(nodes).to(dev)
-    q = torch.from_numpy(queries).to(dev)
-    q8 = quantize_queries(q, packed.scale)
+    q = torch.from_numpy(qps_queries).to(dev)
+    q8 = packed_mod.quantize_queries(q, packed.scale)
     q8 = torch.nn.functional.pad(q8, (0, packed.d_pad - q8.shape[1]))
     qn = torch.sum(q * q, dim=1)
-    args = (nodes_t, packed.meta, packed.pay, q8, qn, packed.scale, True)
-    ids, d = packed_score(*args)
-    ids_ref, d_ref = packed_score_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(ids, ids_ref):
-        raise AssertionError("packed_score: candidate ids differ from plain")
-    torch.testing.assert_close(d, d_ref, rtol=K1_RTOL, atol=0.0)
-    fin = torch.isfinite(d_ref)
-    err = float((d[fin] - d_ref[fin]).abs().max())
-    ms = median_ms(lambda: packed_score(*args))
-    plain = median_ms(lambda: packed_score_plain(*args))
-    say(f"[K1 packed_score] B={QPS_BATCH} E=2 deg={packed.deg} "
-        f"d_pad={packed.d_pad}: ids equal, max |err| {err:.3e} "
-        f"(rtol {K1_RTOL}); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    rows = []
+    for b in (QPS_BATCH // 2, QPS_BATCH):
+        nodes, _, _ = k1_inputs(N, b, 2, packed.d_pad, gen)
+        args = (nodes, packed.meta, packed.pay, q8[:b], qn[:b], packed.scale,
+                True)
+        rows.append(k1_case(f"cold B={b}", args, flush, time_it=True))
+        if b == QPS_BATCH:
+            rows.append(k1_case("cold ip", args[:-1] + (False,)))
+    half0, half1 = captured[2 * CAPTURE_ITER], captured[2 * CAPTURE_ITER + 1]
+    rows.append(k1_case(f"real B={QPS_BATCH // 2}", half0, flush,
+                        time_it=True))
+    both = tuple(torch.cat([a, b]) for a, b in zip(
+        (half0[0], half0[3], half0[4]), (half1[0], half1[3], half1[4])))
+    args = (both[0], packed.meta, packed.pay, both[1], both[2], packed.scale,
+            half0[6])
+    rows.append(k1_case(f"real B={QPS_BATCH}", args, flush, time_it=True))
+    return rows
+
+
+def check_k2_main(x, data_q, seed_call, rerank_call, knn_call, flush,
+                  gen) -> list[dict]:
+    """On the main-path data: every dtype and metric at the three main-path
+    shapes with random ids (f32 l2 timed cold), then the ids the main path
+    itself used (timed)."""
+    dev = x.device
+    xn = x / torch.linalg.norm(x, dim=1, keepdim=True)
+    q = torch.from_numpy(data_q).to(dev)
+    qn = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    rows = []
+    for metric, base, qq in (("l2", x, q), ("ip", xn, qn)):
+        for storage in ("f32", "bf16", "int8"):
+            vec, sc, _ = quantize_rows(base, storage)
+            for b, k in ((QPS_BATCH, 8), (QPS_BATCH, 32), (1024, 97)):
+                ids = gen.integers(-1, N, size=(b, k)).astype(np.int32)
+                ids[:, 0] = -1
+                t = (metric, storage) == ("l2", "f32")
+                rows.append(k2_case(f"cold {b}x{k}", vec, sc, qq[:b],
+                                    torch.from_numpy(ids).to(dev), metric,
+                                    flush, time_it=t, path="vector"))
+            del vec
+    for label, (vec, sc, qq, ids, metric) in (
+            ("real seed re-score", seed_call),
+            ("real rerank", rerank_call),
+            ("real kNN-table rerank", knn_call)):
+        rows.append(k2_case(label, vec, sc, qq, ids, metric, flush,
+                            time_it=True))
+    return rows
+
+
+def capture_query(index, qps_queries):
+    """Arguments of K1 and K2 in one 8192-query knn_query."""
+    with recording(packed_mod, "packed_score") as k1_calls, \
+            recording(packed_mod, "dists_to_ids") as rerank, \
+            recording(search_mod, "dists_to_ids") as seed:
+        index.knn_query(qps_queries, **QUERY_KNOBS)
+    if len(k1_calls) != 2 * QUERY_KNOBS["max_iters"] or len(rerank) != 1 \
+            or len(seed) != 1:
+        raise AssertionError(f"capture: {len(k1_calls)} K1 calls, "
+                             f"{len(rerank)} reranks, {len(seed)} seed scans")
+
+    def k2_args(call):
+        vectors, scales, _, q, _, ids, metric = call
+        return vectors, scales, q, ids, metric
+
+    return k1_calls, k2_args(seed[0]), k2_args(rerank[0])
+
+
+def capture_knn_batch(x: torch.Tensor):
+    """Arguments of K2 in one 1024-row batch (the 11th) of the kNN table."""
+    flat = bulk_mod.flat_from_rows(x, "l2")
+    with recording(flat_mod, "gather_dists") as calls:
+        bulk_mod.knn_table(flat, x[10 * 1024:11 * 1024], KNN_K, "l2")
+    (vec, scales, q, ids, metric), = calls
+    return vec, scales, q, ids, metric
+
+
+def kernels_only(gen) -> int:
+    """Edge checks plus cold timings on synthetic data (no index)."""
+    flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
+    check_k1_edges(gen)
+    x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
+                                   seed=7)).to(DEV)
+    check_k2_edges(x, gen)
+    pay, meta = synthetic_packed(N, 32, 128, seed=100)
+    scale = torch.tensor([0.02], device=DEV)
+    for b in (4096, 8192):
+        nodes, q8, qn = k1_inputs(N, b, 2, 128, gen)
+        k1_case(f"cold synthetic B={b}", (nodes, meta, pay, q8, qn, scale,
+                                          True), flush, time_it=True)
+    del pay, meta
+    g = torch.Generator(device=DEV).manual_seed(101)
+    xs = torch.randn((N, DIM), device=DEV, generator=g)
+    for b, k in ((8192, 8), (8192, 32), (1024, 97)):
+        ids = torch.from_numpy(gen.integers(-1, N, size=(b, k)).astype(
+            np.int32)).to(DEV)
+        q = torch.randn((b, DIM), device=DEV, generator=g)
+        k2_case(f"cold synthetic {b}x{k}", xs, torch.ones(N, device=DEV),
+                q, ids, "l2", flush, time_it=True)
+    say("[kernels-only] all kernel checks passed")
+    return 0
 
 
 def ground_truth(x: torch.Tensor, q: torch.Tensor, k: int) -> np.ndarray:
@@ -172,12 +530,21 @@ def ground_truth(x: torch.Tensor, q: torch.Tensor, k: int) -> np.ndarray:
     return torch.gather(cand, 1, order).cpu().numpy()
 
 
-def main() -> int:
+def headline(rows: list[dict], case: str) -> dict:
+    (row,) = [r for r in rows if r["case"] == case]
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "bytes", "share")}
+
+
+def main(argv: list[str]) -> int:
     name, smi = phase_device()
     logging.basicConfig(stream=sys.stdout, level=logging.WARNING,
                         format="[%(name)s] %(message)s")
     logging.getLogger("ocaml_hnsw_tpu_torch").setLevel(logging.INFO)
     phase_build_kernels()
+    gen = np.random.default_rng(3)
+    if "--kernels-only" in argv:
+        return kernels_only(gen)
 
     t0 = time.perf_counter()
     data = clustered(N, DIM, n_clusters=400, seed=7)
@@ -185,11 +552,13 @@ def main() -> int:
     qps_queries = queries_like(data, QPS_BATCH, seed=9)
     say(f"[data] clustered {N}x{DIM} + queries in "
         f"{time.perf_counter() - t0:.1f} s (host)")
-
-    k2 = check_gather_dists(data)
+    dev = DEV
+    x = torch.from_numpy(data).to(dev)
+    k1_rows = check_k1_edges(gen)
+    k2_rows = check_k2_edges(x, gen)
 
     # ---- main path: bulk build + packed query through the public API
-    index = Index("l2", DIM, device="cuda")
+    index = Index("l2", DIM, device=DEV.type)
     index.init_index(max_elements=N, M=M, ef_construction=EFC)
     torch.cuda.reset_peak_memory_stats()
     gather_dists.launches = 0
@@ -199,12 +568,15 @@ def main() -> int:
     index.add_items(data)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_launches = {"gather_dists": gather_dists.launches,
+                      "packed_score": packed_score.launches}
     t0 = time.perf_counter()
     labels, dists = index.knn_query(queries, **QUERY_KNOBS)
     query_s = time.perf_counter() - t0  # includes the one-off payload pack
     launches = {"gather_dists": gather_dists.launches,
                 "packed_score": packed_score.launches}
-    say(f"[main] launches during build+query: {json.dumps(launches)}")
+    say(f"[main] launches during build+query: {json.dumps(launches)} "
+        f"(build alone: {json.dumps(build_launches)})")
     say(f"[main] build {build_s:.2f} s = {N / build_s:.0f} vectors/s; first "
         f"query batch (incl. payload pack) {query_s:.2f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -218,15 +590,12 @@ def main() -> int:
         raise AssertionError("non-finite distances or missing results")
     if (np.diff(dists, axis=1) < 0).any():
         raise AssertionError("distances not ascending")
-    dev = torch.device("cuda")
-    x = torch.from_numpy(data).to(dev)
     q = torch.from_numpy(queries).to(dev)
     exact = torch.sum(
         (x[torch.from_numpy(labels).to(dev)] - q[:, None, :]) ** 2, dim=-1)
     np.testing.assert_allclose(dists, exact.cpu().numpy(), rtol=1e-5,
                                atol=1e-5)
     gt = ground_truth(x, q, k)
-    del x
     rec = float(np.mean([len(set(a) & set(b)) / k
                          for a, b in zip(labels.tolist(), gt.tolist())]))
     say(f"[main] recall@{k} {rec:.4f} over {N_QUERIES} queries "
@@ -244,22 +613,51 @@ def main() -> int:
     med = statistics.median(times)
     say(f"[main] QPS {QPS_BATCH / med:.0f} (median of 5 batches of "
         f"{QPS_BATCH}: {med * 1e3:.1f} ms) [{smi}]")
+    before = (gather_dists.launches, packed_score.launches)
+    k1_calls, seed_call, rerank_call = capture_query(index, qps_queries)
+    batch_launches = {"gather_dists": gather_dists.launches - before[0],
+                      "packed_score": packed_score.launches - before[1]}
+    say(f"[main] launches per {QPS_BATCH}-query batch: "
+        f"{json.dumps(batch_launches)}")
 
-    # ---- K1 on the index's own 1M payload, at the main-path shape
-    k1 = check_packed_score(index._packed_index(), qps_queries)
+    # ---- kernels at the main path's shapes, on its data and its inputs
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    k1_rows += check_k1_main(index._packed_index(), qps_queries, k1_calls,
+                             flush, gen)
+    del k1_calls
+    knn_call = capture_knn_batch(x)
+    k2_rows += check_k2_main(x, qps_queries, seed_call, rerank_call, knn_call,
+                             flush, gen)
 
     for kern, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{kern} was not launched on the main path")
+    shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
     record = {"kernels": [
         dict(name="packed_score", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/payload_score.cu",
              replaces="ocaml_hnsw_tpu/ops/pallas/payload_score.py:114",
-             launches=launches["packed_score"], **k1),
+             launches=launches["packed_score"],
+             launches_build=build_launches["packed_score"],
+             launches_per_batch=batch_launches["packed_score"],
+             max_abs_err=max(r["max_abs_err"] for r in k1_rows),
+             **headline(k1_rows, f"real B={QPS_BATCH // 2}"), library_ms=None,
+             library_note=NO_LIBRARY,
+             shapes=[{"case": r["case"], "shape": r["shape"],
+                      **{s: r[s] for s in shapes}}
+                     for r in k1_rows if "ms" in r]),
         dict(name="gather_dists", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/gather_dist.cu",
              replaces="ocaml_hnsw_tpu/ops/pallas/gather_dist.py:65",
-             launches=launches["gather_dists"], **k2),
+             launches=launches["gather_dists"],
+             launches_build=build_launches["gather_dists"],
+             launches_per_batch=batch_launches["gather_dists"],
+             max_abs_err=max(r["max_abs_err"] for r in k2_rows),
+             **headline(k2_rows, "real rerank"), library_ms=None,
+             library_note=NO_LIBRARY,
+             shapes=[{"case": r["case"], "shape": r["shape"],
+                      **{s: r[s] for s in shapes}}
+                     for r in k2_rows if "ms" in r]),
     ]}
     print(json.dumps(record))
     print(smi)
@@ -269,4 +667,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,191 @@
+"""Times the kernels of two checkouts of the port side by side on one card.
+
+    python -m ocaml_hnsw_tpu_torch.bench.kernel_race --other DIR [--out F]
+
+DIR is another checkout of the repository (e.g. a parent commit unpacked
+with `git archive`).  Each checkout is timed in a process of its own, through
+its own wrappers (`packed_score`, `gather_dists`, built from its own
+`csrc/`), on identical inputs made on the device from fixed seeds, at the
+main path's shapes: K1 at B = 4096 and 8192 (E = 2, deg = 32, d_pad = 128,
+random nodes over a 1M-node payload) and K2 f32 l2 at (8192, 32),
+(8192, 8) and (1024, 97) over 1M x 128 rows.  The processes run in turns
+(other, this, this, other) so that drift of the card shows; a result is the
+median over both turns of each checkout.
+
+Each time is the median of CUDA-event timings of one call, with a spin
+kernel holding the stream while the call is enqueued (so host launch cost is
+not in it), under one of these L2 states:
+  warm   the same call repeated: what the last call left in L2 is reused
+  read   a 128 MiB buffer is read between reps (L2 holds only clean lines
+         of it: the call finds its data cold)
+  write  a 128 MiB buffer is written between reps (cold too, but the call
+         pays for evicting ~50 MB of dirty lines)
+and `enqueue` is one call timed without the spin kernel, so host launch
+cost lands in the time, as the timings before this script did.  As a
+yardstick of what the card's memory gives a plain stream, each process also
+times `sum` over a 256 MiB buffer (read) and a 256 MiB `copy_` (read +
+write), warm-up aside, with nothing flushed (256 MiB does not fit in L2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+N_NODES, DEG, D_PAD = 1_000_000, 32, 128
+N_ROWS, DIM = 1_000_000, 128
+FLUSH_BYTES = 128 << 20
+SPIN_CYCLES = 2_000_000
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+K1_SHAPES = (4096, 8192)
+K2_SHAPES = ((8192, 32), (8192, 8), (1024, 97))
+MODES = ("warm", "read", "write", "enqueue")
+THIS = Path(__file__).resolve().parents[2]
+
+
+def _worker(tree: str, reps: int) -> None:
+    """Runs in a child process with `tree` first on sys.path."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import gather_dists
+    from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import packed_score
+
+    dev = torch.device("cuda")
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def time_ms(fn, mode: str) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            if mode == "read":
+                flush.sum()
+            elif mode == "write":
+                flush.zero_()
+            if mode != "enqueue":
+                torch.cuda._sleep(SPIN_CYCLES)
+            else:
+                torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    g = torch.Generator(device=dev).manual_seed(2024)
+    out = []
+    big = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(big)
+    for name, fn, moved in (
+            ("stream read (sum)", lambda: big.view(torch.float32).sum(), 1),
+            ("stream copy", lambda: dst.copy_(big), 2)):
+        out.append(dict(kernel=name, shape=[big.numel()], mode="warm",
+                        bytes=moved * big.numel(), ms=time_ms(fn, "warm")))
+    del big, dst
+    pay = torch.randint(-127, 128, (N_NODES, DEG, D_PAD), dtype=torch.int8,
+                        device=dev, generator=g)
+    ids = torch.randint(0, N_NODES, (N_NODES, DEG), dtype=torch.int32,
+                        device=dev, generator=g)
+    norms = torch.randint(0, 1 << 21, (N_NODES, DEG), dtype=torch.int32,
+                          device=dev, generator=g)
+    meta = torch.cat([ids, norms], dim=1)
+    del ids, norms
+    scale = torch.tensor([0.02], device=dev)
+    for b in K1_SHAPES:
+        nodes = torch.randint(0, N_NODES, (b, 2), dtype=torch.int32,
+                              device=dev, generator=g)
+        q8 = torch.randint(-127, 128, (b, D_PAD), dtype=torch.int8,
+                           device=dev, generator=g)
+        qn = torch.rand(b, device=dev, generator=g) * 100
+        args = (nodes, meta, pay, q8, qn, scale, True)
+        nbytes = (int(torch.unique(nodes).numel()) * (DEG * D_PAD + 8 * DEG)
+                  + b * (D_PAD + 4) + b * 2 * 4 + b * 2 * DEG * 8)
+        for mode in MODES:
+            out.append(dict(kernel="packed_score", shape=[b, 2, DEG, D_PAD],
+                            mode=mode, bytes=nbytes,
+                            ms=time_ms(lambda: packed_score(*args), mode)))
+    del pay, meta
+    rows = torch.randn((N_ROWS, DIM), device=dev, generator=g)
+    ones = torch.ones(N_ROWS, device=dev)
+    for b, k in K2_SHAPES:
+        ids = torch.randint(0, N_ROWS, (b, k), dtype=torch.int32, device=dev,
+                            generator=g)
+        q = torch.randn((b, DIM), device=dev, generator=g)
+        nbytes = (int(torch.unique(ids).numel()) * DIM * 4 + b * DIM * 4
+                  + b * k * 8)
+        for mode in MODES:
+            out.append(dict(kernel="gather_dists", shape=[b, k, DIM],
+                            mode=mode, bytes=nbytes,
+                            ms=time_ms(lambda: gather_dists(rows, ones, q, ids,
+                                                            "l2"), mode)))
+    print(json.dumps(out))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", required=True,
+                    help="another checkout of the repository")
+    ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        _worker(args.worker, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_race: no CUDA device available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    other = str(Path(args.other).resolve())
+    turns = [("other", other), ("this", str(THIS)), ("this", str(THIS)),
+             ("other", other)]
+    results: dict[tuple, dict[str, list[float]]] = {}
+    for who, tree in turns:
+        env = dict(os.environ, PYTHONPATH=tree)
+        proc = subprocess.run(
+            [sys.executable, __file__, "--other", other, "--worker", tree,
+             "--reps", str(args.reps)],
+            capture_output=True, text=True, env=env, cwd=tree, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_race: {who} ({tree}) failed:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+            key = (r["kernel"], tuple(r["shape"]), r["mode"], r["bytes"])
+            results.setdefault(key, {}).setdefault(who, []).append(r["ms"])
+    table = []
+    print(f"[race] {smi}; other = {other}")
+    for (kernel, shape, mode, nbytes), by in results.items():
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(kernel=kernel, shape=list(shape), mode=mode, bytes=nbytes,
+                   bound_ms=bound_ms, card=smi,
+                   other_ms=statistics.median(by["other"]),
+                   this_ms=statistics.median(by["this"]),
+                   other_turns=by["other"], this_turns=by["this"])
+        table.append(row)
+        print(f"[race] {kernel} {list(shape)} {mode:7s} bound "
+              f"{bound_ms * 1e3:6.1f} us  other {row['other_ms'] * 1e3:7.1f} us"
+              f" ({bound_ms / row['other_ms']:.0%})  this "
+              f"{row['this_ms'] * 1e3:7.1f} us ({bound_ms / row['this_ms']:.0%})"
+              f"  turns other {[round(t * 1e3, 1) for t in by['other']]} "
+              f"this {[round(t * 1e3, 1) for t in by['this']]}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(table, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

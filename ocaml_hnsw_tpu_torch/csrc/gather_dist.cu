@@ -6,20 +6,45 @@
 // (per-row dequant scale), l2 = sum (x - q)^2 or ip/cosine = 1 - x.q, f32
 // accumulation, and +inf where the id is -1.
 //
-// What bounds it on an H100: scattered row fetches.  Each (b, k) reads one
-// D-wide row at a random address (512 B at D=128 f32) plus the query row,
-// which stays in L1/L2 across the K ids of a query; the arithmetic is 2 flops
-// per byte read, far below the card's compute line.  The design is the simple
-// one: one warp per (b, k), lanes stride the row (neighbouring lanes read
-// neighbouring addresses, so each row is fetched in full 128-byte segments),
-// and a shuffle reduction.  A later version can keep more rows in flight per
-// warp (cp.async) to hide latency.
+// What bounds it on an H100: memory, as scattered row fetches.  Each (b, k)
+// reads one D-wide row at a random address (512 B at D = 128 f32); the
+// arithmetic is 2 flops per byte, far below the card's ridge point, so the
+// bound is bytes / 3.35 TB/s, reached only with enough rows in flight.
+//
+// The design: a warp takes a task = one query b and up to 32 consecutive
+// k's (the wrapper's launch plan splits K so the grid fills the card at
+// every main-path shape, e.g. B = 1024, K = 97).  It loads the task's ids in
+// one coalesced load (one id latency per task, not per row), holds the query
+// row in registers as 16-byte vectors, and then keeps 8 16-byte loads in
+// flight per lane: a row of 16-byte multiple width is split into chunks, a
+// segment of `lpr` lanes (a power of two) covers one row, so one
+// warp-instruction moves one f32 D=128 row, two bf16 rows or four int8 rows,
+// and 8 / cpl such instructions are issued before any result is needed.  A
+// segmented shuffle reduction sums each row, and the task's results leave in
+// one coalesced store.  The grid is persistent (resident blocks walk the
+// tasks), so no wave is left half full.  (Loading the next task's ids ahead,
+// or deferring int8 scales behind the row loads, timed slower on the card:
+// both raise the registers per thread and so cut the resident warps.)
+//
+// Rows go straight to registers rather than through a cp.async.bulk ring in
+// shared memory: a row is one 16-byte load per lane and is used once, so a
+// ring would add a shared-memory write and read per byte and an mbarrier
+// round per 512-byte row, for no more bytes in flight than 8 loads per lane
+// already give.
+//
+// Rows whose width is not a 16-byte multiple (bf16 D = 100), bases that are
+// not 16-byte aligned and rows wider than 1024 elements take the generic
+// path of the same kernel family: lanes stride the row element by element,
+// 4 rows in flight.  The wrapper picks the path from shapes and alignment.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -29,90 +54,324 @@ __device__ __forceinline__ float load_f(const int8_t* p) {
   return static_cast<float>(*p);
 }
 
-template <typename T, bool kInt8, bool kL2>
-__global__ void gather_dists_kernel(const T* __restrict__ vectors,
-                                    const float* __restrict__ scales,
-                                    const float* __restrict__ q,
-                                    const int* __restrict__ ids,
-                                    float* __restrict__ out, int B, int K,
-                                    int D) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<long long>(B) * K) return;  // warp-uniform
-  const int b = static_cast<int>(warp / K);
-  const int id = ids[warp];
-  if (id < 0) {  // warp-uniform
-    if (lane == 0) out[warp] = __int_as_float(0x7f800000);  // +inf
-    return;
-  }
-  const T* row = vectors + static_cast<size_t>(id) * D;
-  const float* qr = q + static_cast<size_t>(b) * D;
-  const float s = kInt8 ? scales[id] : 1.0f;
-  float acc = 0.0f;
-  for (int d = lane; d < D; d += 32) {
-    float x = load_f(row + d);
-    if (kInt8) x = __fmul_rn(x, s);  // one rounding, as rows.float() * scale
-    const float qv = qr[d];
-    if (kL2) {
-      const float t = x - qv;
-      acc = fmaf(t, t, acc);
-    } else {
-      acc = fmaf(x, qv, acc);
-    }
-  }
+// A 16-byte chunk of stored row elements as floats.
+__device__ __forceinline__ void unpack(const int4& v, float (&x)[4]) {
+  x[0] = __int_as_float(v.x);
+  x[1] = __int_as_float(v.y);
+  x[2] = __int_as_float(v.z);
+  x[3] = __int_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(const int4& v, float (&x)[8]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) out[warp] = kL2 ? acc : 1.0f - acc;
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<int*>(&h) = w[i];
+    const float2 f = __bfloat1622float2(h);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack(const int4& v, float (&x)[16]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    x[i] = static_cast<float>(static_cast<int8_t>(w[i / 4] >> (8 * (i % 4))));
+}
+
+template <bool kL2>
+__device__ __forceinline__ float accumulate(float acc, float x, float qv) {
+  if (kL2) {
+    const float t = x - qv;
+    return fmaf(t, t, acc);
+  }
+  return fmaf(x, qv, acc);
+}
+
+// One task: query b, ids k0 .. k0 + kn - 1; lane l holds ids[b, k0 + l]
+// (-1 past the task's end) and, for int8 rows, its row's scale.
+struct Task {
+  int b, k0, kn, id;
+  float scale;
+};
+
+template <bool kInt8>
+__device__ __forceinline__ Task load_task(long long t, int nchunks, int kc,
+                                          int K, const int* __restrict__ ids,
+                                          const float* __restrict__ scales,
+                                          int lane) {
+  Task task;
+  task.b = static_cast<int>(t / nchunks);
+  task.k0 = static_cast<int>(t % nchunks) * kc;
+  task.kn = min(kc, K - task.k0);
+  task.id = lane < task.kn
+                ? ids[static_cast<size_t>(task.b) * K + task.k0 + lane]
+                : -1;
+  task.scale = kInt8 && task.id >= 0 ? scales[task.id] : 1.0f;
+  return task;
+}
+
+__device__ __forceinline__ void store_task(const Task& task, float res,
+                                           bool l2, float* __restrict__ out,
+                                           int K, int lane) {
+  if (lane < task.kn)
+    out[static_cast<size_t>(task.b) * K + task.k0 + lane] =
+        task.id < 0 ? __int_as_float(0x7f800000) : (l2 ? res : 1.0f - res);
+}
+
+// Vector path.  kCpl: 16-byte chunks per lane per row (rows wider than 32
+// chunks); lpr_log2: log2 of the lanes per row segment.
+template <typename T, bool kInt8, bool kL2, int kCpl>
+__global__ void __launch_bounds__(kThreads)
+    gather_vec_kernel(const T* __restrict__ vectors,
+                      const float* __restrict__ scales,
+                      const float* __restrict__ q, const int* __restrict__ ids,
+                      float* __restrict__ out, int B, int K, int D, int kc,
+                      int nchunks, int lpr_log2) {
+  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int kR = 8 / kCpl;          // row slots per lane in flight
+  const int lane = threadIdx.x & 31;
+  const int lpr = 1 << lpr_log2;
+  const int rpi = 32 >> lpr_log2;  // rows per warp-instruction
+  const int seg = lane >> lpr_log2;
+  const int sl = lane & (lpr - 1);
+  const int nch = D / kPer;
+  const int rows_per_it = kR * rpi;
+  const long long tasks = static_cast<long long>(B) * nchunks;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long t = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) >> 5;
+       t < tasks; t += warps) {
+    const Task task = load_task<kInt8>(t, nchunks, kc, K, ids, scales, lane);
+    // this lane's query chunks, in registers
+    float qv[kCpl][kPer];
+    const float4* qrow =
+        reinterpret_cast<const float4*>(q + static_cast<size_t>(task.b) * D);
+#pragma unroll
+    for (int c = 0; c < kCpl; ++c) {
+      const int ch = sl + c * lpr;
+#pragma unroll
+      for (int v = 0; v < kPer / 4; ++v) {
+        const float4 f = ch < nch ? __ldg(qrow + ch * (kPer / 4) + v)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        qv[c][4 * v] = f.x;
+        qv[c][4 * v + 1] = f.y;
+        qv[c][4 * v + 2] = f.z;
+        qv[c][4 * v + 3] = f.w;
+      }
+    }
+    float res = 0.0f;
+    for (int it = 0; it < task.kn; it += rows_per_it) {
+      int4 raw[kR][kCpl];
+      float sc[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int row = it + r * rpi + seg;
+        const int id = __shfl_sync(kFull, task.id, row & 31);
+        sc[r] = __shfl_sync(kFull, task.scale, row & 31);
+        const bool live = row < task.kn && id >= 0;
+        const int4* src = reinterpret_cast<const int4*>(
+            vectors + static_cast<size_t>(live ? id : 0) * D);
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) {
+          const int ch = sl + c * lpr;
+          raw[r][c] = live && ch < nch ? __ldg(src + ch) : make_int4(0, 0, 0, 0);
+        }
+      }
+      float acc[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        acc[r] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) {
+          float x[kPer];
+          unpack(raw[r][c], x);
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) {
+            // one rounding, as rows.float() * scale
+            const float xv = kInt8 ? __fmul_rn(x[e], sc[r]) : x[e];
+            acc[r] = accumulate<kL2>(acc[r], xv, qv[c][e]);
+          }
+        }
+      }
+      // segmented reduction: every lane of a segment ends with its row's sum
+      for (int o = lpr >> 1; o > 0; o >>= 1) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+      }
+      // lane l keeps the sum of the task's row l
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int rel = lane - it - r * rpi;
+        const bool mine = rel >= 0 && rel < rpi;
+        const float v = __shfl_sync(kFull, acc[r], mine ? rel << lpr_log2 : 0);
+        if (mine) res = v;
+      }
+    }
+    store_task(task, res, kL2, out, K, lane);
+  }
+}
+
+// Generic path: any width and alignment; lanes stride the row.
+template <typename T, bool kInt8, bool kL2>
+__global__ void __launch_bounds__(kThreads)
+    gather_generic_kernel(const T* __restrict__ vectors,
+                          const float* __restrict__ scales,
+                          const float* __restrict__ q,
+                          const int* __restrict__ ids, float* __restrict__ out,
+                          int B, int K, int D, int kc, int nchunks) {
+  constexpr int kR = 4;
+  const int lane = threadIdx.x & 31;
+  const long long tasks = static_cast<long long>(B) * nchunks;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long t = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) >> 5;
+       t < tasks; t += warps) {
+    const Task task = load_task<kInt8>(t, nchunks, kc, K, ids, scales, lane);
+    const float* qr = q + static_cast<size_t>(task.b) * D;
+    float res = 0.0f;
+    for (int it = 0; it < task.kn; it += kR) {
+      const T* rows[kR];
+      bool live[kR];
+      float sc[kR], acc[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int id = __shfl_sync(kFull, task.id, (it + r) & 31);
+        sc[r] = __shfl_sync(kFull, task.scale, (it + r) & 31);
+        live[r] = it + r < task.kn && id >= 0;  // warp-uniform
+        rows[r] = vectors + static_cast<size_t>(live[r] ? id : 0) * D;
+        acc[r] = 0.0f;
+      }
+      for (int d = lane; d < D; d += 32) {
+        const float qv = qr[d];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          if (!live[r]) continue;
+          float x = load_f(rows[r] + d);
+          if (kInt8) x = __fmul_rn(x, sc[r]);
+          acc[r] = accumulate<kL2>(acc[r], x, qv);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+        if (lane == it + r) res = acc[r];
+      }
+    }
+    store_task(task, res, kL2, out, K, lane);
+  }
+}
+
+template <typename Kernel>
+int grid_for(Kernel kernel, long long tasks, unsigned* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           kThreads, 0)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long need = (tasks + kThreads / 32 - 1) / (kThreads / 32);
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  *blocks = static_cast<unsigned>(need < resident ? need : resident);
+  return 0;
+}
+
+struct Args {
+  const void* vectors;
+  const float* scales;
+  const float* q;
+  const int* ids;
+  float* out;
+  int B, K, D, kc, nchunks, lpr_log2;
+  cudaStream_t stream;
+};
+
+template <typename T, bool kInt8, bool kL2, int kCpl>
+int launch_vec(const Args& a) {
+  auto kernel = gather_vec_kernel<T, kInt8, kL2, kCpl>;
+  unsigned blocks = 0;
+  const int err = grid_for(kernel, static_cast<long long>(a.B) * a.nchunks,
+                           &blocks);
+  if (err) return err;
+  kernel<<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.vectors), a.scales, a.q, a.ids, a.out, a.B, a.K,
+      a.D, a.kc, a.nchunks, a.lpr_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kInt8, bool kL2>
+int launch_generic(const Args& a) {
+  auto kernel = gather_generic_kernel<T, kInt8, kL2>;
+  unsigned blocks = 0;
+  const int err = grid_for(kernel, static_cast<long long>(a.B) * a.nchunks,
+                           &blocks);
+  if (err) return err;
+  kernel<<<blocks, kThreads, 0, a.stream>>>(static_cast<const T*>(a.vectors),
+                                            a.scales, a.q, a.ids, a.out, a.B,
+                                            a.K, a.D, a.kc, a.nchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cpl = 0 selects the generic path.  A lane holds at most 32 query floats:
+// f32 rows take cpl 1-8, bf16 1-4, int8 1-2.
+template <typename T, bool kInt8, bool kL2>
+int launch(const Args& a, int cpl) {
+  constexpr int kMaxCpl = 32 / (16 / sizeof(T));
+  if (cpl == 0) return launch_generic<T, kInt8, kL2>(a);
+  if (cpl == 1) return launch_vec<T, kInt8, kL2, 1>(a);
+  if (cpl == 2) return launch_vec<T, kInt8, kL2, 2>(a);
+  if constexpr (kMaxCpl >= 4) {
+    if (cpl == 4) return launch_vec<T, kInt8, kL2, 4>(a);
+  }
+  if constexpr (kMaxCpl >= 8) {
+    if (cpl == 8) return launch_vec<T, kInt8, kL2, 8>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, bool kInt8>
-void launch(const void* vectors, const float* scales, const float* q,
-            const int* ids, float* out, int B, int K, int D, int metric,
-            unsigned blocks, int threads, cudaStream_t stream) {
-  const T* v = static_cast<const T*>(vectors);
-  if (metric == 0) {
-    gather_dists_kernel<T, kInt8, true>
-        <<<blocks, threads, 0, stream>>>(v, scales, q, ids, out, B, K, D);
-  } else {
-    gather_dists_kernel<T, kInt8, false>
-        <<<blocks, threads, 0, stream>>>(v, scales, q, ids, out, B, K, D);
-  }
+int launch_metric(const Args& a, int metric, int cpl) {
+  if (metric == 0) return launch<T, kInt8, true>(a, cpl);
+  if (metric == 1) return launch<T, kInt8, false>(a, cpl);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16, 2 = int8.  metric: 0 = l2, 1 = ip/cosine.
-// Returns cudaGetLastError() after the launch.
+// kc, nchunks: the launch plan's split of K into tasks of at most 32 ids
+// (kc * nchunks >= K); cpl, lpr_log2: its row layout (cpl 0 = generic path);
+// see ops/kernels/gather_dist.py::launch_plan.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int ohnsw_gather_dists(const void* vectors, int dtype,
                                   const void* scales, const void* q,
                                   const void* ids, void* out, int B, int K,
-                                  int D, int metric, void* stream) {
-  const long long warps = static_cast<long long>(B) * K;
-  if (warps == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((warps * 32 + threads - 1) / threads);
-  const float* s = static_cast<const float*>(scales);
-  const float* qq = static_cast<const float*>(q);
-  const int* ii = static_cast<const int*>(ids);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                  int D, int metric, int kc, int nchunks,
+                                  int cpl, int lpr_log2, void* stream) {
+  if (static_cast<long long>(B) * K == 0) return 0;
+  if (kc < 1 || kc > 32 || static_cast<long long>(kc) * nchunks < K ||
+      lpr_log2 < 0 || lpr_log2 > 5)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{vectors,
+               static_cast<const float*>(scales),
+               static_cast<const float*>(q),
+               static_cast<const int*>(ids),
+               static_cast<float*>(out),
+               B, K, D, kc, nchunks, lpr_log2,
+               static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0:
-      launch<float, false>(vectors, s, qq, ii, o, B, K, D, metric, blocks,
-                           threads, st);
-      break;
+      return launch_metric<float, false>(a, metric, cpl);
     case 1:
-      launch<__nv_bfloat16, false>(vectors, s, qq, ii, o, B, K, D, metric,
-                                   blocks, threads, st);
-      break;
+      return launch_metric<__nv_bfloat16, false>(a, metric, cpl);
     case 2:
-      launch<int8_t, true>(vectors, s, qq, ii, o, B, K, D, metric, blocks,
-                           threads, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_metric<int8_t, true>(a, metric, cpl);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,94 +16,320 @@
 // compiler cannot contract it into an FMA: the result is bit-identical to the
 // plain torch version in ops/kernels/payload_score.py.
 //
-// What bounds it on an H100: gathers, and their latency.  At the main-path
-// shape (B = 8192 queries, E = 2 expanded nodes, deg = 32, d_pad = 128) one
-// call reads 16384 slabs of 4 KB plus 256 B of meta each, about 71 MB from
-// random addresses, and does 2 int ops per byte.  The design is the simple
-// one: one warp per (query, expanded node), one lane per neighbour row; each
-// lane reads its 128-byte row as 16-byte loads, so a warp pulls its node's
-// whole slab in 8 load instructions, and the query row is a broadcast read.
-// Deeper pipelining (cp.async/TMA rings) and fusing the beam merge are later
-// work.
+// What bounds it on an H100: memory, as gathers of whole slabs.  At the
+// main-path shape (B = 4096 or 8192 queries, E = 2 expanded nodes, deg = 32,
+// d_pad = 128) each (query, node) item reads a 4 KB slab, a 256 B meta row and
+// the 128 B query row from random addresses, and does 2 int ops per byte:
+// far below the card's ridge point, so the bound is bytes / 3.35 TB/s, and
+// reaching it takes ~3.4 MB in flight across the card (Little's law), i.e.
+// more than 8 slabs per SM at all times.
+//
+// The design, a bulk-copy slab ring private to each warp: as many warps as
+// fit are resident, and each walks a contiguous range of (query, node)
+// items.  It loads its node ids 32 at a time (one coalesced load, the next
+// group's in flight) and keeps `stages` items in flight: for each, one lane
+// issues bulk copies (cp.async.bulk, the TMA's linear mode: one instruction
+// per contiguous run, the hardware makes the addresses) of the slab, the
+// query row and the meta row into a shared-memory stage, as soon as the node
+// id is known; nothing waits on the meta contents.  When an item's mbarrier
+// completes, lane j scores row j from shared memory with __dp4a, reading
+// 16-byte chunk (c + j) mod (d_pad / 16) at step c, so the 8 lanes of a
+// quarter-warp hit 8 different bank groups instead of one; then the warp
+// refills the stage with the item `stages` further on.  The stage size
+// follows deg * d_pad (the wrapper's launch plan), so a 24 KB slab
+// (d_pad = 768) still fits.
+//
+// Why a ring per warp and not one per block fed by a producer warp: on the
+// card, one producer thread issuing every item of a block serialised the
+// copies (a timeline of the block showed the ring still being armed long
+// after the first slabs had landed); with every warp its own producer the
+// copies are issued in parallel, and no warp ever waits on another (no
+// "stage empty" barriers).  Two stages per warp with ~24 warps resident per
+// SM (~46 slabs, ~200 KB in flight per SM) timed best of the ring shapes
+// tried on an H100.
+//
+// Tensor cores buy nothing here: each query owns its slabs, so an int8 MMA
+// would compute a [deg, 16] tile of which one column is wanted (15/16
+// wasted), as the TPU kernel's matrix-unit dot did.
+//
+// Every stage a warp arms is consumed before the warp exits: nodes < 0 arm
+// their stage with a plain arrive (no bytes), so no mbarrier waits on a copy
+// never issued, and a warp never runs ahead of its own barriers by more than
+// one phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void packed_score_kernel(const int* __restrict__ nodes,
-                                    const int* __restrict__ meta,
-                                    const int8_t* __restrict__ pay,
-                                    const int8_t* __restrict__ q8,
-                                    const float* __restrict__ qn,
-                                    const float* __restrict__ scale,
-                                    int* __restrict__ cand_ids,
-                                    float* __restrict__ cand_d, int B, int E,
-                                    int deg, int d_pad, int needs_norms) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+constexpr int kMaxWarps = 4;  // per block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Global -> shared bulk copy; completion counts `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__host__ __device__ constexpr int header_bytes(int barriers) {
+  return (barriers * 8 + 127) / 128 * 128;  // one mbarrier per stage
+}
+
+struct Item {  // where the copies of this warp's items come from
+  const int8_t* pay;
+  const int* meta;
+  const int8_t* q8;
+  int deg, d_pad, E, meta_in_ring, stage_bytes;
+  long long lo;
+};
+
+// Arms stage (i mod stages) with item i's copies; one lane calls it.
+__device__ __forceinline__ void issue(const Item& it, unsigned char* ring,
+                                      uint64_t* full, int stages, int i,
+                                      int node) {
+  const int s = i % stages;
+  if (node < 0) {
+    mbar_arrive(&full[s]);  // nothing to fetch
+    return;
+  }
+  const int slab_bytes = it.deg * it.d_pad;
+  const int meta_bytes = it.meta_in_ring ? 8 * it.deg : 0;
+  unsigned char* st = ring + static_cast<size_t>(s) * it.stage_bytes;
+  mbar_arrive_expect_tx(&full[s], slab_bytes + it.d_pad + meta_bytes);
+  bulk_load(st, it.pay + static_cast<size_t>(node) * slab_bytes, slab_bytes,
+            &full[s]);
+  bulk_load(st + slab_bytes,
+            it.q8 + static_cast<size_t>((it.lo + i) / it.E) * it.d_pad,
+            it.d_pad, &full[s]);
+  if (meta_bytes)
+    bulk_load(st + slab_bytes + it.d_pad,
+              it.meta + static_cast<size_t>(node) * 2 * it.deg, meta_bytes,
+              &full[s]);
+}
+
+// kNvec: 16-byte chunks per payload row (d_pad / 16) fixed at compile time,
+// or 0 to read it from d_pad.
+template <int kNvec>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    packed_score_kernel(const int* __restrict__ nodes,
+                        const int* __restrict__ meta,
+                        const int8_t* __restrict__ pay,
+                        const int8_t* __restrict__ q8,
+                        const float* __restrict__ qn,
+                        const float* __restrict__ scale,
+                        int* __restrict__ cand_ids,
+                        float* __restrict__ cand_d, long long n_items, int E,
+                        int deg, int d_pad, int needs_norms, int stages,
+                        int stage_bytes, int meta_in_ring) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<long long>(B) * E) return;  // warp-uniform
-  const int b = static_cast<int>(warp / E);
-  const int node = nodes[warp];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem) + warp * stages;
+  unsigned char* ring = smem + header_bytes(warps * stages) +
+                        static_cast<size_t>(warp) * stages * stage_bytes;
+  // this warp's contiguous range of (query, node) items
+  const long long gw = static_cast<long long>(blockIdx.x) * warps + warp;
+  const long long tw = static_cast<long long>(gridDim.x) * warps;
+  const long long lo = n_items * gw / tw;
+  const int count = static_cast<int>(n_items * (gw + 1) / tw - lo);
+  const Item it{pay, meta, q8, deg, d_pad, E, meta_in_ring, stage_bytes, lo};
+
+  if (lane < stages) mbar_init(&full[lane], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncwarp();
+  // node ids of items [32g, 32g + 32) and of the next group
+  int cur = lane < count ? nodes[lo + lane] : -1;
+  int nxt = 32 + lane < count ? nodes[lo + 32 + lane] : -1;
+  if (lane < min(stages, count)) issue(it, ring, full, stages, lane, cur);
+
   const float s = __ldg(scale);
   const float s2 = __fmul_rn(s, s);
-  const float qnb = qn[b];
-  const int nvec = d_pad / 16;
-  const int4* qrow = reinterpret_cast<const int4*>(q8 + static_cast<size_t>(b) * d_pad);
-  const int* mrow = meta + static_cast<size_t>(node < 0 ? 0 : node) * 2 * deg;
   const float inf = __int_as_float(0x7f800000);
-  for (int j = lane; j < deg; j += 32) {
-    const size_t o = static_cast<size_t>(warp) * deg + j;  // [b, e*deg + j]
-    const int id = node < 0 ? -1 : mrow[j];
-    if (id < 0) {
-      cand_ids[o] = -1;
-      cand_d[o] = inf;
-      continue;
+  const int nvec = kNvec > 0 ? kNvec : d_pad / 16;
+  const int slab_bytes = deg * d_pad;
+  for (int i = 0; i < count; ++i) {
+    if (i > 0 && (i & 31) == 0) {
+      cur = nxt;
+      nxt = i + 32 + lane < count ? nodes[lo + i + 32 + lane] : -1;
     }
-    const int4* prow = reinterpret_cast<const int4*>(
-        pay + (static_cast<size_t>(node) * deg + j) * d_pad);
-    int acc = 0;
-    for (int c = 0; c < nvec; ++c) {
-      const int4 x = prow[c];
-      const int4 y = qrow[c];
-      acc = __dp4a(x.x, y.x, acc);
-      acc = __dp4a(x.y, y.y, acc);
-      acc = __dp4a(x.z, y.z, acc);
-      acc = __dp4a(x.w, y.w, acc);
-    }
-    float d;
-    if (needs_norms) {
-      const float t = static_cast<float>(mrow[deg + j] - 2 * acc);
-      d = __fadd_rn(__fmul_rn(s2, t), qnb);
+    const int node = __shfl_sync(0xffffffffu, cur, i & 31);
+    const long long w = lo + i;
+    const float qnb = needs_norms ? qn[w / E] : 0.0f;  // ahead of the wait
+    const int st_i = i % stages;
+    mbar_wait(&full[st_i], (i / stages) & 1);
+    int* oid = cand_ids + w * deg;
+    float* od = cand_d + w * deg;
+    if (node < 0) {
+      for (int r = lane; r < deg; r += 32) {
+        oid[r] = -1;
+        od[r] = inf;
+      }
     } else {
-      d = __fsub_rn(1.0f, __fmul_rn(s2, static_cast<float>(acc)));
+      const unsigned char* st = ring + static_cast<size_t>(st_i) * stage_bytes;
+      const int4* qv = reinterpret_cast<const int4*>(st + slab_bytes);
+      const int* mrow =
+          meta_in_ring
+              ? reinterpret_cast<const int*>(st + slab_bytes + d_pad)
+              : meta + static_cast<size_t>(node) * 2 * deg;
+      for (int r = lane; r < deg; r += 32) {
+        const int id = mrow[r];
+        if (id < 0) {
+          oid[r] = -1;
+          od[r] = inf;
+          continue;
+        }
+        const int4* row = reinterpret_cast<const int4*>(st + r * d_pad);
+        int acc = 0;
+        if (kNvec > 0) {
+#pragma unroll
+          for (int c = 0; c < kNvec; ++c) {
+            const int cc = (c + r) % kNvec;  // rotated: no bank conflicts
+            const int4 x = row[cc];
+            const int4 y = qv[cc];
+            acc = __dp4a(x.x, y.x, acc);
+            acc = __dp4a(x.y, y.y, acc);
+            acc = __dp4a(x.z, y.z, acc);
+            acc = __dp4a(x.w, y.w, acc);
+          }
+        } else {
+          int cc = r % nvec;
+#pragma unroll 4
+          for (int c = 0; c < nvec; ++c) {
+            const int4 x = row[cc];
+            const int4 y = qv[cc];
+            acc = __dp4a(x.x, y.x, acc);
+            acc = __dp4a(x.y, y.y, acc);
+            acc = __dp4a(x.z, y.z, acc);
+            acc = __dp4a(x.w, y.w, acc);
+            cc = cc + 1 == nvec ? 0 : cc + 1;
+          }
+        }
+        float d;
+        if (needs_norms) {
+          const float t = static_cast<float>(mrow[deg + r] - 2 * acc);
+          d = __fadd_rn(__fmul_rn(s2, t), qnb);
+        } else {
+          d = __fsub_rn(1.0f, __fmul_rn(s2, static_cast<float>(acc)));
+        }
+        oid[r] = id;
+        od[r] = d;
+      }
     }
-    cand_ids[o] = id;
-    cand_d[o] = d;
+    __syncwarp();  // every lane is done with the stage: refill it
+    const int j = i + stages;
+    if (j < count) {
+      const int nj = __shfl_sync(0xffffffffu, (j >> 5) == (i >> 5) ? cur : nxt,
+                                 j & 31);
+      if (lane == 0) {
+        // order this warp's reads of the stage before the async-proxy write
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(it, ring, full, stages, j, nj);
+      }
+    }
   }
+}
+
+template <int kNvec>
+int launch(const void* nodes, const void* meta, const void* pay,
+           const void* q8, const void* qn, const void* scale, void* cand_ids,
+           void* cand_d, long long n_items, int E, int deg, int d_pad,
+           int needs_norms, int stages, int warps, int stage_bytes,
+           int smem_bytes, int meta_in_ring, cudaStream_t stream) {
+  auto kernel = packed_score_kernel<kNvec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 32 * warps;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem_bytes)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const long long need = (n_items + warps - 1) / warps;  // a warp per item
+  const unsigned blocks =
+      static_cast<unsigned>(need < resident ? need : resident);
+  kernel<<<blocks, threads, smem_bytes, stream>>>(
+      static_cast<const int*>(nodes), static_cast<const int*>(meta),
+      static_cast<const int8_t*>(pay), static_cast<const int8_t*>(q8),
+      static_cast<const float*>(qn), static_cast<const float*>(scale),
+      static_cast<int*>(cand_ids), static_cast<float*>(cand_d), n_items, E,
+      deg, d_pad, needs_norms, stages, stage_bytes, meta_in_ring);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// The ring's shape (stages per warp, warps per block, stage_bytes,
+// smem_bytes, meta_in_ring) comes from the wrapper's launch plan
+// (ops/kernels/payload_score.py::launch_plan); the grid is as many blocks as
+// are resident at once.  Returns cudaGetLastError() after the launch.
 extern "C" int ohnsw_packed_score(const void* nodes, const void* meta,
                                   const void* pay, const void* q8,
                                   const void* qn, const void* scale,
                                   void* cand_ids, void* cand_d, int B, int E,
                                   int deg, int d_pad, int needs_norms,
+                                  int stages, int warps, int stage_bytes,
+                                  int smem_bytes, int meta_in_ring,
                                   void* stream) {
-  const long long warps = static_cast<long long>(B) * E;
-  if (warps == 0) return 0;
-  if (d_pad % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((warps * 32 + threads - 1) / threads);
-  packed_score_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(nodes), static_cast<const int*>(meta),
-      static_cast<const int8_t*>(pay), static_cast<const int8_t*>(q8),
-      static_cast<const float*>(qn), static_cast<const float*>(scale),
-      static_cast<int*>(cand_ids), static_cast<float*>(cand_d), B, E, deg,
-      d_pad, needs_norms);
-  return static_cast<int>(cudaGetLastError());
+  const long long n_items = static_cast<long long>(B) * E;
+  if (n_items == 0 || deg == 0) return 0;
+  if (d_pad % 16 != 0 || stages < 1 || stages > 32 || warps < 1 ||
+      warps > kMaxWarps || stage_bytes % 16 != 0 ||
+      stage_bytes < deg * d_pad + d_pad + (meta_in_ring ? 8 * deg : 0) ||
+      (meta_in_ring && deg % 2 != 0) ||
+      smem_bytes < header_bytes(warps * stages) + warps * stages * stage_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d_pad == 128)
+    return launch<8>(nodes, meta, pay, q8, qn, scale, cand_ids, cand_d,
+                     n_items, E, deg, d_pad, needs_norms, stages, warps,
+                     stage_bytes, smem_bytes, meta_in_ring, st);
+  return launch<0>(nodes, meta, pay, q8, qn, scale, cand_ids, cand_d, n_items,
+                   E, deg, d_pad, needs_norms, stages, warps, stage_bytes,
+                   smem_bytes, meta_in_ring, st);
 }

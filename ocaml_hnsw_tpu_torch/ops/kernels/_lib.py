@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in `ocaml_hnsw_tpu_torch/csrc`.
 
-nvcc compiles every `csrc/*.cu` for Hopper (`sm_90a`) into one shared
+nvcc compiles every `csrc/*.cu` for Hopper (`sm_90a`), one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which ctypes loads.  The library lands in
 `ocaml_hnsw_tpu_torch/build/` (git-ignored) under a name that hashes the
 sources and flags, so an edited source is rebuilt and a stale library is
@@ -21,17 +22,21 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so 64-bit addresses are not cut to ints)
 _SIGNATURES = {
     "ohnsw_gather_dists": [_vp, _int, _vp, _vp, _vp, _vp,
+                           _int, _int, _int, _int,
                            _int, _int, _int, _int, _vp],
     "ohnsw_packed_score": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                           _int, _int, _int, _int, _int,
                            _int, _int, _int, _int, _int, _vp],
 }
+#: dynamic shared memory one block may opt into on Hopper (227 KiB)
+SMEM_LIMIT = 232448
 
 _lib = None
 build_log = ""  # ptxas report of the last build (registers, spills)
@@ -50,10 +55,13 @@ def _nvcc() -> str:
     return found
 
 
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources + sorted(CSRC.glob("*.cuh")):
+    for s in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libohnsw_kernels_{h.hexdigest()[:16]}.so"
@@ -67,19 +75,23 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, out.name)
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        build_log = "".join(logs)
+        if not os.path.exists(lib):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(lib, out)  # atomic: concurrent builders never see half a file
     return out
 
 

@@ -15,9 +15,56 @@ id −1 / distance +inf where the node is −1 or the adjacency slot is empty.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+from ocaml_hnsw_tpu_torch.utils import round_up
+
+#: stages of each warp's ring, and warps per block (csrc/payload_score.cu:
+#: two stages and ~24 resident warps per SM timed best on an H100)
+STAGES = 2
+WARPS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Shape of the kernel's shared-memory rings (csrc/payload_score.cu):
+    each of a block's `warps` warps owns `stages` stages of `stage_bytes`,
+    holding one item's slab, query row and (when `meta_in_ring`) meta row."""
+
+    stages: int
+    warps: int
+    stage_bytes: int
+    smem_bytes: int
+    meta_in_ring: bool
+
+
+def _header_bytes(barriers: int) -> int:
+    return round_up(barriers * 8, 128)  # one mbarrier per stage
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(deg: int, d_pad: int, meta_aligned: bool = True) -> LaunchPlan:
+    """Ring shape from the slab size: `STAGES` stages per warp and up to
+    `WARPS` warps per block, as many as fit a block's 227 KiB (one stage per
+    warp for slabs over half of it).  The meta row rides in the ring when it
+    can be one bulk copy (16-byte multiple, aligned base); otherwise the warp
+    reads it from device memory."""
+    meta_in_ring = meta_aligned and (8 * deg) % 16 == 0
+    stage = round_up(deg * d_pad + d_pad + (8 * deg if meta_in_ring else 0),
+                     128)
+    room = _lib.SMEM_LIMIT - _header_bytes(WARPS * STAGES)
+    stages = min(STAGES, room // stage)
+    if stages < 1:
+        raise ValueError(f"packed_score: a [{deg}, {d_pad}] slab does not fit "
+                         "in one block's shared memory")
+    warps = min(WARPS, room // (stage * stages))
+    return LaunchPlan(stages, warps, stage,
+                      _header_bytes(warps * stages) + warps * stages * stage,
+                      meta_in_ring)
 
 
 def packed_score_plain(nodes, meta, pay, q8, qn, scale, needs_norms: bool):
@@ -71,13 +118,18 @@ def packed_score(nodes, meta, pay, q8, qn, scale, needs_norms: bool):
         raise ValueError("packed_score: pay and q8 must be 16-byte aligned")
     cand_ids = torch.empty((b, e * deg), dtype=torch.int32, device=pay.device)
     cand_d = torch.empty((b, e * deg), dtype=torch.float32, device=pay.device)
+    if b * e * deg == 0:
+        return cand_ids, cand_d
+    plan = launch_plan(deg, d_pad, meta.data_ptr() % 16 == 0)
     lib = _lib.library()
     with torch.cuda.device(pay.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ohnsw_packed_score(
             nodes.data_ptr(), meta.data_ptr(), pay.data_ptr(), q8.data_ptr(),
             qn.data_ptr(), scale.data_ptr(), cand_ids.data_ptr(),
-            cand_d.data_ptr(), b, e, deg, d_pad, int(needs_norms), stream)
+            cand_d.data_ptr(), b, e, deg, d_pad, int(needs_norms),
+            plan.stages, plan.warps, plan.stage_bytes, plan.smem_bytes,
+            int(plan.meta_in_ring), stream)
     _lib.check(status, "packed_score")
     packed_score.launches += 1
     return cand_ids, cand_d

@@ -23,6 +23,11 @@ from ocaml_hnsw_tpu.models.build import sample_levels as jax_sample_levels
 from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models import bulk as tbulk
 
+# One torch thread: under pytest-xdist every worker's default pool (one
+# thread per core) spins against the other workers and XLA; the port's
+# tests are small, and the lane runs about 2.5x faster this way.
+torch.set_num_threads(1)
+
 N, DIM, M, KNN_K, BATCH = 4000, 24, 12, 24, 1024
 ROW_FLIP_SHARE = 1e-3  # f32 near-tie admits (module docstring)
 
@@ -86,15 +91,46 @@ def data():
 
 
 @pytest.fixture(scope="module")
-def jax_graph(data):
-    return jbulk.bulk_build(data, JaxConfig(dim=DIM, M=M, ef_construction=80),
-                            knn_k=KNN_K, batch=BATCH)
+def jax_build(data):
+    """The JAX reference graph, and the layer-0 kNN table it was built on
+    (kept, so the tests below need not compute it again)."""
+    tables = []
+
+    def recording(*args, **kwargs):
+        tables.append(real(*args, **kwargs))
+        return tables[-1]
+
+    real = jbulk.knn_table
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbulk, "knn_table", recording)
+    try:
+        g = jbulk.bulk_build(data, JaxConfig(dim=DIM, M=M,
+                                             ef_construction=80),
+                             knn_k=KNN_K, batch=BATCH)
+    finally:
+        mp.undo()
+    ids, d = tables[0]
+    return g, (torch.from_numpy(np.array(ids)), torch.from_numpy(np.array(d)))
 
 
 @pytest.fixture(scope="module")
-def port_on_jax_knn(data):
+def jax_graph(jax_build):
+    return jax_build[0]
+
+
+@pytest.fixture(scope="module")
+def port_on_jax_knn(data, jax_build):
+    """The port's build on the JAX kNN tables: layer 0's as the JAX build
+    made it, the upper levels' through `_jax_knn_table`."""
+    layer0 = jax_build[1]
+
+    def jax_tables(flat, rows, k, metric, batch=1024, rerank_pad=32):
+        if rows.shape[0] == N and k == KNN_K:
+            return layer0[0].clone(), layer0[1].clone()
+        return _jax_knn_table(flat, rows, k, metric, batch, rerank_pad)
+
     mp = pytest.MonkeyPatch()
-    mp.setattr(tbulk, "knn_table", _jax_knn_table)
+    mp.setattr(tbulk, "knn_table", jax_tables)
     try:
         return tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M,
                                                  ef_construction=80),
@@ -140,11 +176,11 @@ class TestConstructionParity:
 
 
 class TestOwnKnnTable:
-    def test_knn_table_agrees_with_jax(self, data):
+    def test_knn_table_agrees_with_jax(self, data, jax_build):
         x = torch.from_numpy(data)
         flat = tbulk.flat_from_rows(x, "l2")
         ids, d = tbulk.knn_table(flat, x, KNN_K, "l2", batch=BATCH)
-        j_ids, j_d = _jax_knn_table(flat, x, KNN_K, "l2", batch=BATCH)
+        j_ids, j_d = jax_build[1]
         agree = (ids.numpy() == j_ids.numpy()).mean()
         assert agree >= 0.995, agree
         assert (ids.numpy() != np.arange(N)[:, None]).all()  # self excluded

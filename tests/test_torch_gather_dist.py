@@ -19,9 +19,14 @@ from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
 from ocaml_hnsw_tpu_torch.ops.distance import dists_to_ids
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
-    gather_dists, gather_dists_plain,
+    gather_dists, gather_dists_plain, launch_plan,
 )
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+
+# One torch thread: under pytest-xdist every worker's default pool (one
+# thread per core) spins against the other workers and XLA; the port's
+# tests are small, and the lane runs about 2.5x faster this way.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -90,6 +95,41 @@ class TestAgainstDistsToIds:
             np.testing.assert_allclose(out.numpy(), want, rtol=1e-5)
         finally:
             metrics.unregister_metric("l1_gather_test")
+
+
+class TestLaunchPlan:
+    """How csrc/gather_dist.cu splits a call into warp tasks and rows."""
+
+    @pytest.mark.parametrize("dim,itemsize,aligned,vector", [
+        (128, 4, True, True), (128, 2, True, True), (128, 1, True, True),
+        (100, 4, True, True), (96, 1, True, True), (768, 4, True, True),
+        (1024, 1, True, True), (16, 1, True, True),
+        (100, 2, True, False), (100, 1, True, False), (128, 4, False, False),
+        (2048, 4, True, False)])
+    def test_path_from_width_and_alignment(self, dim, itemsize, aligned,
+                                           vector):
+        p = launch_plan(1024, 32, dim, itemsize, aligned)
+        assert (p.cpl > 0) == vector
+        if vector:
+            chunks = dim * itemsize // 16
+            lanes = 1 << p.lpr_log2
+            assert lanes * p.cpl >= chunks  # every chunk has a lane
+            assert lanes == 32 or lanes >= chunks
+            assert p.cpl * 16 // itemsize <= 32  # query floats per lane
+
+    @pytest.mark.parametrize("b,k", [(1, 1), (1000, 13), (8192, 8),
+                                     (8192, 32), (1024, 97), (7, 33),
+                                     (3, 200)])
+    @pytest.mark.parametrize("dim,itemsize", [(128, 4), (128, 1), (100, 2)])
+    def test_tasks_cover_ragged_k(self, b, k, dim, itemsize):
+        p = launch_plan(b, k, dim, itemsize, True)
+        assert 1 <= p.kc <= 32  # one id per lane
+        assert p.kc * p.nchunks >= k > (p.nchunks - 1) * p.kc  # none empty
+
+    def test_grid_fills_the_card_at_knn_table_shape(self):
+        # B = 1024 queries alone would be 1024 warps; K is split instead
+        p = launch_plan(1024, 97, 128, 4, True, sm_count=132)
+        assert 1024 * p.nchunks >= 32 * 132
 
 
 class TestKernelBuild:

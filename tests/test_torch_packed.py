@@ -1,8 +1,10 @@
 """Packed inline-int8 engine of the torch port against the JAX package's
 (`ocaml_hnsw_tpu/models/packed.py`).
 
-  * `pack_graph` on a JAX-built graph carried across with
-    `graph_from_numpy`: payload bytes, meta (ids + int32 norms) and scale
+  * `pack_graph` on one graph in both packages (built by the port, which
+    is faster here — tests/test_torch_bulk.py holds that build to the JAX
+    package's — and carried across with `graph_to_numpy` /
+    `graph_from_numpy`): payload bytes, meta (ids + int32 norms) and scale
     are bit-identical to the JAX `pack_graph`.
   * `knn_search_packed` with seeds=None on integer-grid vectors and queries
     (|x| <= 15, scale 1.0): every int8 product is exact in bf16 and every
@@ -22,8 +24,6 @@ import torch
 import jax.numpy as jnp
 
 from ocaml_hnsw_tpu.bench.datasets import clustered, queries_like
-from ocaml_hnsw_tpu.config import HnswConfig as JaxConfig
-from ocaml_hnsw_tpu.models.bulk import bulk_build as jax_bulk_build
 from ocaml_hnsw_tpu.models.graph import GraphTensors as JaxGraph
 from ocaml_hnsw_tpu.models import packed as jpacked
 from ocaml_hnsw_tpu.models.search import build_seed_index as jax_seed_index
@@ -36,6 +36,11 @@ from ocaml_hnsw_tpu_torch.models.graph import (
 )
 from ocaml_hnsw_tpu_torch.models import packed as tpacked
 from ocaml_hnsw_tpu_torch.models.search import build_seed_index
+
+# One torch thread: under pytest-xdist every worker's default pool (one
+# thread per core) spins against the other workers and XLA; the port's
+# tests are small, and the lane runs about 2.5x faster this way.
+torch.set_num_threads(1)
 
 
 def jax_to_port(g):
@@ -53,9 +58,9 @@ def port_to_jax(g):
 @pytest.fixture(scope="module")
 def clustered_graphs():
     data = clustered(4000, 24, n_clusters=32, seed=1)
-    jg = jax_bulk_build(data, JaxConfig(dim=24, M=12, ef_construction=80),
-                        knn_k=24, batch=1024)
-    return data, jg, jax_to_port(jg)
+    tg = bulk_build(data, HnswConfig(dim=24, M=12, ef_construction=80),
+                    knn_k=24, batch=1024)
+    return data, port_to_jax(tg), tg
 
 
 @pytest.fixture(scope="module")
@@ -104,9 +109,10 @@ class TestPackGraph:
 
     def test_graph_bridge_roundtrip(self, clustered_graphs):
         _, jg, tg = clustered_graphs
-        back = graph_to_numpy(tg)
+        back = graph_to_numpy(jax_to_port(jg))  # port -> JAX -> port
         for f in GraphTensors._fields:
             np.testing.assert_array_equal(back[f], np.asarray(getattr(jg, f)))
+            np.testing.assert_array_equal(back[f], getattr(tg, f).numpy())
 
     def test_off_path_options_raise(self, clustered_graphs):
         _, _, tg = clustered_graphs

@@ -17,25 +17,37 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from ocaml_hnsw_tpu.config import HnswConfig as JaxConfig
-from ocaml_hnsw_tpu.models.bulk import bulk_build as jax_bulk_build
+from ocaml_hnsw_tpu.models.graph import GraphTensors as JaxGraph
 from ocaml_hnsw_tpu.models.packed import pack_graph as jax_pack_graph
 
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
+from ocaml_hnsw_tpu_torch.config import HnswConfig
+from ocaml_hnsw_tpu_torch.models.bulk import bulk_build
+from ocaml_hnsw_tpu_torch.models.graph import graph_to_numpy
 from ocaml_hnsw_tpu_torch.models.packed import (
     packed_from_numpy, quantize_queries,
 )
+from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
-    packed_score, packed_score_plain,
+    WARPS, launch_plan, packed_score, packed_score_plain,
 )
+
+# One torch thread: under pytest-xdist every worker's default pool (one
+# thread per core) spins against the other workers and XLA; the port's
+# tests are small, and the lane runs about 2.5x faster this way.
+torch.set_num_threads(1)
 
 B, E = 64, 2
 
 
 @pytest.fixture(scope="module")
 def packs():
+    """The JAX package's pack of a graph (built by the port, which is
+    faster here; tests/test_torch_bulk.py holds its build to JAX's)."""
     data = clustered(600, 20, n_clusters=8, seed=4)
-    g = jax_bulk_build(data, JaxConfig(dim=20, M=6), knn_k=12, batch=256)
+    tg = bulk_build(data, HnswConfig(dim=20, M=6), knn_k=12, batch=256)
+    g = JaxGraph(**{f: jnp.asarray(a) for f, a in graph_to_numpy(tg).items()},
+                 l_max_static=tg.l_max_static)
     jp = jax_pack_graph(g, "l2")
     tp = packed_from_numpy(np.asarray(jp.pay), np.asarray(jp.meta),
                            np.asarray(jp.scale), "cpu")
@@ -127,3 +139,29 @@ class TestPackedScore:
                                needs_norms)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
         assert packed_score.launches == before
+
+
+class TestLaunchPlan:
+    """The ring shape csrc/payload_score.cu is launched with."""
+
+    @pytest.mark.parametrize("deg,d_pad", [(32, 128), (24, 128), (48, 128),
+                                           (33, 128), (32, 768), (64, 1024),
+                                           (128, 1024)])
+    def test_ring_fits_and_holds_an_item(self, deg, d_pad):
+        p = launch_plan(deg, d_pad)
+        assert p.smem_bytes <= _lib.SMEM_LIMIT
+        assert 1 <= p.stages and 1 <= p.warps <= WARPS
+        assert p.meta_in_ring == (deg % 2 == 0)  # 8·deg bytes, 16-aligned
+        item = deg * d_pad + d_pad + (8 * deg if p.meta_in_ring else 0)
+        assert p.stage_bytes >= item and p.stage_bytes % 128 == 0
+        header = -(-p.warps * p.stages * 8 // 128) * 128
+        assert p.smem_bytes == header + p.warps * p.stages * p.stage_bytes
+
+    def test_main_shape_and_misaligned_meta(self):
+        p = launch_plan(32, 128)
+        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 4480)
+        assert not launch_plan(32, 128, meta_aligned=False).meta_in_ring
+
+    def test_slab_too_large_raises(self):
+        with pytest.raises(ValueError, match="does not fit"):
+            launch_plan(128, 2048)
