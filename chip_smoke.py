@@ -1,13 +1,25 @@
 """Smoke run of the torch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain torch version on edge cases and at main-path
-shapes, then drives the main path at full SIFT1M scale (1M x 128-d, L2,
-M=16) through the public API — `Index.add_items` (bulk build) and
-`Index.knn_query` (packed engine) — and checks recall@10 against exact
-ground truth computed on the card.
+shapes, then drives the port's paths through the public API and checks
+their results against exact ground truth computed on the card:
+
+  A. a small index from empty (BASELINE config 1, bench.py `random10k`:
+     10k x 128, L2): incremental build, classic-engine queries, save_index /
+     load_index with a resize, an add after the load;
+  B. streaming ingest at the shapes of bench.py `laion-streaming` (768-d,
+     cosine), depth cut to 96k rows: a warm add, then 10 ingest steps each
+     followed by one 4096-query batch per (ef, max_iters) setting;
+  main. the SIFT1M main path (1M x 128-d, L2, M=16): `Index.add_items`
+     (bulk build) and `Index.knn_query` (packed engine);
+  C. resize_index and a 50k-row add on top of that bulk-built index (the
+     build-maintained payload: K1 in the construction beam), then the main
+     path's queries again over all 1.05M rows.
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # build + kernel checks on
                                           # synthetic data, no index
+    python3 chip_smoke.py --profile-dir DIR  # also write the profiled
+                                             # windows' op tables to DIR
 
 Kernel times are medians of CUDA-event timings.  A spin kernel holds the
 stream while each timed call is enqueued, so host-side launch cost is not
@@ -23,11 +35,17 @@ beside its bound: the bytes the call must move (every distinct row or slab
 it touches read once, every output written once) over 3.35 TB/s, or its
 operations over the peak rate for their type if that is longer.
 
+The kernels are also held and timed at the new paths' shapes, on inputs
+captured there: K2 on a phase-A build round's candidate block and on a
+phase-B query batch's, K1 on a phase-C construction beam step.  Launch
+counters are zeroed before each phase and read after it; a phase whose path
+runs a kernel fails if that kernel did not launch.
+
 Exits non-zero, printing no result, when no CUDA device is available.  The
 last line of stdout is {"ok": true, "device": {...}}; the line before it is
 the card's name and power limit, and the line before that lists each kernel
-with its launches on the main path, its largest difference from the plain
-version, its times and bounds.
+with its launches on the main path (and per phase), its largest difference
+from the plain version, its times and bounds.
 """
 
 from __future__ import annotations
@@ -35,9 +53,11 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +65,7 @@ import torch
 
 from ocaml_hnsw_tpu_torch import Index
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
+from ocaml_hnsw_tpu_torch.models import build as build_mod
 from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
 from ocaml_hnsw_tpu_torch.models import flat as flat_mod
 from ocaml_hnsw_tpu_torch.models import packed as packed_mod
@@ -66,6 +87,18 @@ N_QUERIES, QPS_BATCH = 1000, 8192
 QUERY_KNOBS = dict(k=10, ef=64, max_iters=29, rerank_k=32, expand=2,
                    interleave=2)
 RECALL_FLOOR = 0.90
+#: phase A: bench.py random10k (BASELINE config 1)
+A_N, A_DIM, A_M, A_EFC, A_RS = 10_000, 128, 16, 64, 512
+A_EF, A_ADD, A_FLOOR = 64, 1_000, 0.95
+#: phase B: bench.py laion-streaming shapes (bench/harness.py
+#: run_streaming_config), depth cut from 1M to 96k rows
+B_N, B_DIM, B_EFC, B_RS, B_QB, B_STEPS = 96_000, 768, 200, 2048, 4096, 10
+B_SETTINGS = ((96, 16), (128, 24))
+B_FLOOR = 0.90  # at (128, 24)
+#: phase C: resize + add on top of the main path's bulk-built index
+C_MAX, C_ADD, C_FLOOR = 1_050_000, 50_000, 0.90
+#: the classic engine's candidate compaction at M=16 (knn_query "auto")
+COMPACT_K = 96
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
 # K1 must equal its plain version bit for bit (exact int32 dot, same
 # rounding in the epilogue)
@@ -80,6 +113,7 @@ SPIN_CYCLES = 2_000_000  # about 1 ms of spin ahead of each timed call
 CAPTURE_ITER = 9  # the beam loop's 10th iteration
 KNN_K = 64  # bulk_build's kNN table: k + 1 + 32 = 97 candidates reranked
 DEV = torch.device("cuda")
+PROFILE_DIR = None  # --profile-dir: where busy_share writes op tables
 NO_LIBRARY = ("no single PyTorch call computes it: a gather and a distance "
               "are at least two calls (index_select, then a reduction)")
 
@@ -223,6 +257,75 @@ def recording(module, name: str):
         yield calls
     finally:
         setattr(module, name, real)
+
+
+def reset_launches() -> None:
+    gather_dists.launches = 0
+    packed_score.launches = 0
+
+
+def read_launches() -> dict:
+    return {"gather_dists": gather_dists.launches,
+            "packed_score": packed_score.launches}
+
+
+def require_launches(phase: str, launches: dict, kernels) -> None:
+    for kern in kernels:
+        if launches[kern] <= 0:
+            raise AssertionError(f"{kern} was not launched in phase {phase}")
+
+
+def busy_share(fn, name: str) -> dict:
+    """Profile fn once: the device-busy share of its wall time (kernels'
+    device time summed by torch.profiler over the wall time of the profiled
+    call; profiling adds host time, so this reads low; None when the
+    profiler records no device time), the number of device kernels, and the
+    wall time per kernel.  With --profile-dir DIR the op table (by host
+    time) goes to DIR/profile_<name>.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # not the trace's processing
+    stats = prof.key_averages()
+    dev = [e for e in stats
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    kernels = sum(e.count for e in dev)
+    if PROFILE_DIR is not None:
+        os.makedirs(PROFILE_DIR, exist_ok=True)
+        with open(os.path.join(PROFILE_DIR, f"profile_{name}.txt"), "w") as f:
+            f.write(stats.table(sort_by="self_cpu_time_total", row_limit=40))
+    return dict(share=dev_us / 1e6 / wall if dev_us > 0 else None,
+                kernels=kernels, wall_s=wall,
+                us_per_kernel=wall * 1e6 / kernels if kernels else None)
+
+
+def fmt_share(busy: dict) -> str:
+    if busy["share"] is None:
+        return "device busy not measured"
+    return (f"device busy {busy['share']:.0%} of {busy['wall_s'] * 1e3:.0f} "
+            f"ms, {busy['kernels']} kernels = {busy['us_per_kernel']:.1f} us "
+            f"of wall each")
+
+
+def recall_of(labels: np.ndarray, gt: np.ndarray) -> float:
+    k = gt.shape[1]
+    return float(np.mean([len(set(a) & set(b)) / k
+                          for a, b in zip(labels.tolist(), gt.tolist())]))
+
+
+def check_result(labels, dists, n_q: int, k: int) -> None:
+    if labels.shape != (n_q, k) or dists.shape != (n_q, k):
+        raise AssertionError(f"bad result shapes {labels.shape} {dists.shape}")
+    if not np.isfinite(dists).all() or (labels < 0).any():
+        raise AssertionError("non-finite distances or missing results")
+    if (np.diff(dists, axis=1) < 0).any():
+        raise AssertionError("distances not ascending")
 
 
 def phase_device() -> tuple[str, str]:
@@ -465,6 +568,12 @@ def check_k2_main(x, data_q, seed_call, rerank_call, knn_call, flush,
     return rows
 
 
+def k2_args(call):
+    """gather_dists arguments of a captured dists_to_ids call."""
+    vectors, scales, _, q, _, ids, metric = call
+    return vectors, scales, q, ids, metric
+
+
 def capture_query(index, qps_queries):
     """Arguments of K1 and K2 in one 8192-query knn_query."""
     with recording(packed_mod, "packed_score") as k1_calls, \
@@ -475,11 +584,6 @@ def capture_query(index, qps_queries):
             or len(seed) != 1:
         raise AssertionError(f"capture: {len(k1_calls)} K1 calls, "
                              f"{len(rerank)} reranks, {len(seed)} seed scans")
-
-    def k2_args(call):
-        vectors, scales, _, q, _, ids, metric = call
-        return vectors, scales, q, ids, metric
-
     return k1_calls, k2_args(seed[0]), k2_args(rerank[0])
 
 
@@ -518,16 +622,274 @@ def kernels_only(gen) -> int:
     return 0
 
 
-def ground_truth(x: torch.Tensor, q: torch.Tensor, k: int) -> np.ndarray:
-    """Exact l2 kNN in f32 on the card: matrix-form shortlist of 64, then
-    an exact (x - q)² re-rank."""
-    xn = torch.sum(x * x, dim=1)
-    qn = torch.sum(q * q, dim=1)
-    d = qn[:, None] - 2.0 * (q @ x.T) + xn[None, :]
-    cand = torch.topk(d, 64, dim=1, largest=False).indices
-    exact = torch.sum((x[cand] - q[:, None, :]) ** 2, dim=-1)
+def ground_truth(x: torch.Tensor, q: torch.Tensor, k: int,
+                 metric: str = "l2") -> np.ndarray:
+    """Exact kNN in f32 on the card: matrix-form shortlist of 64, then an
+    exact re-rank ((x - q)² for l2; 1 - x̂·q̂ for cosine)."""
+    if metric == "cosine":
+        x = x / torch.linalg.norm(x, dim=1, keepdim=True)
+        q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+        cand = torch.topk(q @ x.T, 64, dim=1).indices
+        exact = 1.0 - torch.sum(x[cand] * q[:, None, :], dim=-1)
+    else:
+        xn = torch.sum(x * x, dim=1)
+        qn = torch.sum(q * q, dim=1)
+        d = qn[:, None] - 2.0 * (q @ x.T) + xn[None, :]
+        cand = torch.topk(d, 64, dim=1, largest=False).indices
+        del d
+        exact = torch.sum((x[cand] - q[:, None, :]) ** 2, dim=-1)
     order = torch.argsort(exact, dim=1, stable=True)[:, :k]
     return torch.gather(cand, 1, order).cpu().numpy()
+
+
+def cold_ids(gen, b: int, k: int, n: int) -> torch.Tensor:
+    ids = gen.integers(-1, n, size=(b, k)).astype(np.int32)
+    ids[:, 0] = -1
+    return torch.from_numpy(ids).to(DEV)
+
+
+# ------------------------------------------------- phase A: small index
+def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
+    """BASELINE config 1 from empty: incremental build, classic queries,
+    save/load with a resize, an add after the load."""
+    data = clustered(A_N, A_DIM, n_clusters=64, seed=7)
+    queries = queries_like(data, N_QUERIES, seed=8)
+    x = torch.from_numpy(data).to(DEV)
+    q = torch.from_numpy(queries).to(DEV)
+    index = Index("l2", A_DIM, device=DEV.type)
+    index.init_index(max_elements=A_N, M=A_M, ef_construction=A_EFC,
+                     round_size=A_RS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(search_mod, "dists_to_ids") as calls:
+        index.add_items(data)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # a late round's level-0 beam step: 64 candidate blocks before the end
+    build_call = [c for c in calls
+                  if tuple(c[5].shape) == (A_RS, COMPACT_K)][-64]
+    del calls
+    build_launches = read_launches()
+    require_launches("A build", build_launches, ["gather_dists"])
+    if index._state._packed_build or build_launches["packed_score"]:
+        raise AssertionError("phase A: a 10k index took the packed build")
+
+    knobs = dict(k=10, ef=A_EF, engine="classic")
+    reset_launches()
+    labels, dists = index.knn_query(queries, **knobs)
+    batch_launches = read_launches()
+    require_launches("A query", batch_launches, ["gather_dists"])
+    check_result(labels, dists, N_QUERIES, 10)
+    rec = recall_of(labels, ground_truth(x, q, 10))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        index.knn_query(queries, **knobs)
+        times.append(time.perf_counter() - t0)
+    qps = N_QUERIES / statistics.median(times)
+    if rec < A_FLOOR:
+        raise AssertionError(f"phase A recall@10 {rec:.4f} < {A_FLOOR}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "random10k.idx")
+        index.save_index(path)
+        loaded = Index("l2", A_DIM, device=DEV.type)
+        loaded.load_index(path, max_elements=A_N + A_ADD)
+    lab2, d2 = loaded.knn_query(queries, **knobs)
+    if not (np.array_equal(labels, lab2) and np.array_equal(dists, d2)):
+        raise AssertionError("phase A: results differ after save/load")
+    extra = queries_like(data, A_ADD, seed=11)
+    reset_launches()
+    add_busy = busy_share(lambda: loaded.add_items(extra), "A_add")
+    add_launches = read_launches()
+    require_launches("A add after load", add_launches, ["gather_dists"])
+    x_all = torch.cat([x, torch.from_numpy(extra).to(DEV)])
+    lab3, d3 = loaded.knn_query(queries, **knobs)
+    check_result(lab3, d3, N_QUERIES, 10)
+    rec_all = recall_of(lab3, ground_truth(x_all, q, 10))
+    if rec_all < A_FLOOR:
+        raise AssertionError(f"phase A recall@10 after the add {rec_all:.4f}"
+                             f" < {A_FLOOR}")
+    out = dict(build_vps=A_N / build_s, build_s=build_s, recall=rec,
+               qps=qps, recall_after_add=rec_all, add_busy=add_busy,
+               launches_build=build_launches, launches_per_batch=batch_launches,
+               launches_add=add_launches)
+    say(f"[A random10k] build {build_s:.2f} s = {A_N / build_s:.0f} vectors/s;"
+        f" recall@10 {rec:.4f} (floor {A_FLOOR}) at ef={A_EF} classic; "
+        f"QPS {qps:.0f} (median of 5 batches of {N_QUERIES}); save/load with"
+        f" resize to {A_N + A_ADD}: identical; +{A_ADD} after load: recall@10"
+        f" {rec_all:.4f}, {fmt_share(add_busy)} in that add "
+        f"(profiled); launches build {json.dumps(build_launches)}, per "
+        f"batch {json.dumps(batch_launches)} [{smi}]")
+    vec, sc, qq, ids, metric = k2_args(build_call)
+    rows = [k2_case(f"A build round cold ({A_RS}, {COMPACT_K})", vec, sc, qq,
+                    cold_ids(gen, A_RS, COMPACT_K, A_N), metric, flush,
+                    time_it=True),
+            k2_case(f"A build round real ({A_RS}, {COMPACT_K})", vec, sc, qq,
+                    ids, metric, flush, time_it=True)]
+    return out, rows
+
+
+# ------------------------------------------- phase B: streaming ingest
+def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
+    """laion-streaming shapes at 96k rows: warm add, 10 ingest steps, one
+    timed 4096-query batch per setting after each (the first step's batch
+    excluded from the sustained QPS, as the harness does)."""
+    data = clustered(B_N, B_DIM, n_clusters=64, seed=7)
+    queries = queries_like(data, N_QUERIES, seed=8)
+    qb = np.tile(queries, (-(-B_QB // N_QUERIES), 1))[:B_QB]
+    x = torch.from_numpy(data).to(DEV)
+    gt = ground_truth(x, torch.from_numpy(queries).to(DEV), 10, "cosine")
+    del x
+    index = Index("cosine", B_DIM, device=DEV.type)
+    index.init_index(max_elements=B_N, M=M, ef_construction=B_EFC,
+                     round_size=B_RS)
+    n_warm = B_N // 2
+    step = (B_N - n_warm) // B_STEPS
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.add_items(data[:n_warm])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = read_launches()
+    require_launches("B warm", warm_launches, ["gather_dists"])
+    if index._state._packed_build or warm_launches["packed_score"]:
+        raise AssertionError("phase B: the packed build switched on")
+    ins_s = 0.0
+    ingest_launches = {"gather_dists": 0, "packed_score": 0}
+    q_s = {s: 0.0 for s in B_SETTINGS}
+    batch_launches = {}
+    for i in range(B_STEPS):
+        lo = n_warm + i * step
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.add_items(data[lo:lo + step])
+        torch.cuda.synchronize()
+        ins_s += time.perf_counter() - t0
+        for kern, c in read_launches().items():
+            ingest_launches[kern] += c
+        index._seed_index()  # the harness builds the seeds outside the timer
+        for ef, mi in B_SETTINGS:
+            reset_launches()
+            t0 = time.perf_counter()
+            index.knn_query(qb, k=10, ef=ef, max_iters=mi, engine="classic")
+            dt = time.perf_counter() - t0
+            batch_launches[(ef, mi)] = read_launches()
+            require_launches(f"B query {ef}/{mi}", batch_launches[(ef, mi)],
+                             ["gather_dists"])
+            if i > 0:
+                q_s[(ef, mi)] += dt
+    require_launches("B ingest", ingest_launches, ["gather_dists"])
+    if index._state._packed_build or ingest_launches["packed_score"]:
+        raise AssertionError(f"phase B: the packed build ran during ingest "
+                             f"{ingest_launches}")
+    sweep = []
+    for ef, mi in B_SETTINGS:
+        labels, dists = index.knn_query(queries, k=10, ef=ef, max_iters=mi,
+                                        engine="classic")
+        check_result(labels, dists, N_QUERIES, 10)
+        sweep.append(dict(ef=ef, max_iters=mi, recall=recall_of(labels, gt),
+                          sustained_qps=B_QB * (B_STEPS - 1) / q_s[(ef, mi)],
+                          launches_per_batch=batch_launches[(ef, mi)]))
+    ef, mi = B_SETTINGS[-1]
+    with recording(search_mod, "dists_to_ids") as calls:
+        index.knn_query(qb, k=10, ef=ef, max_iters=mi, engine="classic")
+    # the beam's 10th candidate block
+    query_call = [c for c in calls
+                  if tuple(c[5].shape) == (B_QB, COMPACT_K)][9]
+    del calls
+    query_busy = busy_share(lambda: index.knn_query(
+        qb, k=10, ef=ef, max_iters=mi, engine="classic"), "B_query")
+    out = dict(warm_vps=n_warm / warm_s, ingest_vps=(B_N - n_warm) / ins_s,
+               launches_warm=warm_launches, launches_ingest=ingest_launches,
+               sweep=sweep, query_busy=query_busy)
+    say(f"[B laion-streaming cut to {B_N}x{B_DIM} cosine] warm "
+        f"{n_warm / warm_s:.0f} vectors/s; ingest {(B_N - n_warm) / ins_s:.0f}"
+        f" vectors/s over {B_STEPS} steps of {step}; " + "; ".join(
+            f"ef={r['ef']} mi={r['max_iters']}: sustained QPS "
+            f"{r['sustained_qps']:.0f}, end recall@10 {r['recall']:.4f}"
+            for r in sweep) + f"; {fmt_share(query_busy)} in a "
+        f"{B_QB}-query batch at {ef}/{mi} (profiled); K2 launches warm "
+        f"{warm_launches['gather_dists']}, ingest "
+        f"{ingest_launches['gather_dists']} [{smi}]")
+    if sweep[-1]["recall"] < B_FLOOR:
+        raise AssertionError(f"phase B recall@10 {sweep[-1]['recall']:.4f} "
+                             f"< {B_FLOOR} at {B_SETTINGS[-1]}")
+    vec, sc, qq, ids, metric = k2_args(query_call)
+    rows = [k2_case(f"B query cold ({B_QB}, {COMPACT_K}) cosine", vec, sc,
+                    qq, cold_ids(gen, B_QB, COMPACT_K, B_N), metric, flush,
+                    time_it=True),
+            k2_case(f"B query real ({B_QB}, {COMPACT_K}) cosine", vec, sc,
+                    qq, ids, metric, flush, time_it=True)]
+    return out, rows
+
+
+# ------------------------------------- phase C: add after a bulk build
+def phase_c(index, data, queries, smi: str, flush, gen) -> tuple[dict, list]:
+    """resize_index + a 50k add on the bulk-built SIFT1M index: the packed
+    build must switch on (K1 in the construction beam), the maintained
+    payload must equal a fresh pack, and the main knobs must still reach
+    the recall floor over all rows."""
+    from ocaml_hnsw_tpu_torch.models.packed import pack_d_pad, pack_graph
+
+    index.resize_index(C_MAX)
+    st = index._state
+    deg = st.graph.adj0.shape[1]
+    payload = st.graph.n_cap * deg * pack_d_pad(DIM)
+    if st.graph.n_cap < st.PACKED_BUILD_THRESHOLD \
+            or payload > st.PACKED_BUILD_BUDGET_BYTES:
+        raise AssertionError(f"phase C: n_cap {st.graph.n_cap}, payload "
+                             f"{payload} B: the packed build cannot switch on")
+    extra = queries_like(data, C_ADD, seed=10)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(packed_mod, "packed_score") as k1_calls:
+        index.add_items(extra)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches("C add", launches, ["gather_dists", "packed_score"])
+    pk = st.packed_graph()
+    if not st._packed_build or pk is None:
+        raise AssertionError("phase C: the packed build did not switch on")
+    fresh = pack_graph(st.graph, "l2", with_dist=True)
+    n = st.host_n
+    same = dict(scale=torch.equal(pk.scale, fresh.scale),
+                pay=torch.equal(pk.pay[:n], fresh.pay[:n]),
+                meta=torch.equal(pk.meta[:n], fresh.meta[:n]),
+                dist=torch.equal(pk.dist[:n], fresh.dist[:n]))
+    del fresh
+    if not all(same.values()):
+        raise AssertionError(f"phase C: maintained payload != fresh pack "
+                             f"{same}")
+    x_all = torch.cat([torch.from_numpy(data), torch.from_numpy(extra)]).to(DEV)
+    labels, dists = index.knn_query(queries, **QUERY_KNOBS)
+    check_result(labels, dists, N_QUERIES, QUERY_KNOBS["k"])
+    rec = recall_of(labels, ground_truth(
+        x_all, torch.from_numpy(queries).to(DEV), QUERY_KNOBS["k"]))
+    del x_all
+    out = dict(ingest_vps=C_ADD / add_s, add_s=add_s, launches_add=launches,
+               recall=rec)
+    say(f"[C add after bulk] resize to {C_MAX}, +{C_ADD} rows in {add_s:.2f} s"
+        f" = {C_ADD / add_s:.0f} vectors/s with the packed build (payload "
+        f"{payload / 1e9:.2f} GB); launches {json.dumps(launches)}; "
+        f"maintained payload == fresh pack over {n} rows; recall@10 {rec:.4f}"
+        f" over {n} rows at the main knobs (floor {C_FLOOR}) [{smi}]")
+    if rec < C_FLOOR:
+        raise AssertionError(f"phase C recall@10 {rec:.4f} < {C_FLOOR}")
+    args = k1_calls[9]  # the first round's 10th beam step
+    del k1_calls
+    b, e = args[0].shape
+    nodes, _, _ = k1_inputs(n, b, e, pk.d_pad, gen)
+    rows = [k1_case(f"C build beam cold B={b} E={e}",
+                    (nodes,) + tuple(args[1:]), flush, time_it=True),
+            k1_case(f"C build beam real B={b} E={e}", args, flush,
+                    time_it=True)]
+    return out, rows
 
 
 def headline(rows: list[dict], case: str) -> dict:
@@ -537,6 +899,9 @@ def headline(rows: list[dict], case: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    global PROFILE_DIR
+    if "--profile-dir" in argv:
+        PROFILE_DIR = argv[argv.index("--profile-dir") + 1]
     name, smi = phase_device()
     logging.basicConfig(stream=sys.stdout, level=logging.WARNING,
                         format="[%(name)s] %(message)s")
@@ -556,6 +921,17 @@ def main(argv: list[str]) -> int:
     x = torch.from_numpy(data).to(dev)
     k1_rows = check_k1_edges(gen)
     k2_rows = check_k2_edges(x, gen)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+
+    # ---- phases A and B: the incremental build and the classic engine
+    t0 = time.perf_counter()
+    phase_a_out, rows = phase_a(smi, flush, gen)
+    k2_rows += rows
+    say(f"[A] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_b_out, rows = phase_b(smi, flush, gen)
+    k2_rows += rows
+    say(f"[B] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- main path: bulk build + packed query through the public API
     index = Index("l2", DIM, device=DEV.type)
@@ -584,20 +960,14 @@ def main(argv: list[str]) -> int:
 
     # ---- correctness of what came out
     k = QUERY_KNOBS["k"]
-    if labels.shape != (N_QUERIES, k) or dists.shape != (N_QUERIES, k):
-        raise AssertionError(f"bad result shapes {labels.shape} {dists.shape}")
-    if not np.isfinite(dists).all() or (labels < 0).any():
-        raise AssertionError("non-finite distances or missing results")
-    if (np.diff(dists, axis=1) < 0).any():
-        raise AssertionError("distances not ascending")
+    check_result(labels, dists, N_QUERIES, k)
     q = torch.from_numpy(queries).to(dev)
     exact = torch.sum(
         (x[torch.from_numpy(labels).to(dev)] - q[:, None, :]) ** 2, dim=-1)
     np.testing.assert_allclose(dists, exact.cpu().numpy(), rtol=1e-5,
                                atol=1e-5)
     gt = ground_truth(x, q, k)
-    rec = float(np.mean([len(set(a) & set(b)) / k
-                         for a, b in zip(labels.tolist(), gt.tolist())]))
+    rec = recall_of(labels, gt)
     say(f"[main] recall@{k} {rec:.4f} over {N_QUERIES} queries "
         f"(floor {RECALL_FLOOR}); knobs {json.dumps(QUERY_KNOBS)}")
     if rec < RECALL_FLOOR:
@@ -621,17 +991,36 @@ def main(argv: list[str]) -> int:
         f"{json.dumps(batch_launches)}")
 
     # ---- kernels at the main path's shapes, on its data and its inputs
-    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
     k1_rows += check_k1_main(index._packed_index(), qps_queries, k1_calls,
                              flush, gen)
     del k1_calls
     knn_call = capture_knn_batch(x)
     k2_rows += check_k2_main(x, qps_queries, seed_call, rerank_call, knn_call,
                              flush, gen)
+    del knn_call, seed_call, rerank_call, x
 
     for kern, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{kern} was not launched on the main path")
+
+    # ---- phase C: add after the bulk build (packed-build upkeep, K1)
+    t0 = time.perf_counter()
+    phase_c_out, rows = phase_c(index, data, queries, smi, flush, gen)
+    k1_rows += rows
+    say(f"[C] phase took {time.perf_counter() - t0:.1f} s")
+
+    by_phase = {
+        "main_build": build_launches,
+        "main_query_batch": batch_launches,
+        "A_build": phase_a_out["launches_build"],
+        "A_query_batch": phase_a_out["launches_per_batch"],
+        "A_add_after_load": phase_a_out["launches_add"],
+        "B_warm": phase_b_out["launches_warm"],
+        "B_ingest": phase_b_out["launches_ingest"],
+        **{f"B_query_batch_ef{r['ef']}_mi{r['max_iters']}":
+           r["launches_per_batch"] for r in phase_b_out["sweep"]},
+        "C_add": phase_c_out["launches_add"],
+    }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
     record = {"kernels": [
         dict(name="packed_score", route="cuda",
@@ -640,6 +1029,8 @@ def main(argv: list[str]) -> int:
              launches=launches["packed_score"],
              launches_build=build_launches["packed_score"],
              launches_per_batch=batch_launches["packed_score"],
+             launches_by_phase={p: c["packed_score"]
+                                for p, c in by_phase.items()},
              max_abs_err=max(r["max_abs_err"] for r in k1_rows),
              **headline(k1_rows, f"real B={QPS_BATCH // 2}"), library_ms=None,
              library_note=NO_LIBRARY,
@@ -652,6 +1043,8 @@ def main(argv: list[str]) -> int:
              launches=launches["gather_dists"],
              launches_build=build_launches["gather_dists"],
              launches_per_batch=batch_launches["gather_dists"],
+             launches_by_phase={p: c["gather_dists"]
+                                for p, c in by_phase.items()},
              max_abs_err=max(r["max_abs_err"] for r in k2_rows),
              **headline(k2_rows, "real rerank"), library_ms=None,
              library_note=NO_LIBRARY,

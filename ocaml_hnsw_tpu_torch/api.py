@@ -1,13 +1,15 @@
 """Public API of the torch port: `Index`, the hnswlib-shaped surface of the JAX
 package's `ocaml_hnsw_tpu/api.py::Index` on torch tensors on one device.
 
-Ported so far is the main path: a first `add_items` that fills most of an
-empty index builds the graph in bulk (`models/bulk.py`), and `knn_query` on
-an index of PACKED_THRESHOLD nodes or more with a matmul metric serves from
-the packed inline-int8 engine (`models/packed.py`).  Where the JAX package
-would take the incremental builder or the classic engine, this raises
-NotImplementedError.  The defaults of `knn_query` are the JAX package's,
-not a benchmarked operating point.
+A first `add_items` that fills most of an empty index builds the graph in
+bulk (`models/bulk.py`); every other add goes through the incremental
+rounds (`models/build.py`).  `knn_query` on an index of PACKED_THRESHOLD
+nodes or more with a matmul metric and a payload within
+PACKED_BUDGET_BYTES serves from the packed inline-int8 engine
+(`models/packed.py`), anything else from the classic engine
+(`models/search.py`).  `save_index` / `load_index` read and write the JAX
+package's `.npz` format (`io.py`).  The defaults of `knn_query` are the JAX
+package's, not a benchmarked operating point.
 
 `Index(space, dim, device="cuda")` keeps every tensor on `device` and never
 falls back to another: with no CUDA device, "cuda" raises.
@@ -21,6 +23,7 @@ import torch
 from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models.build import BuildState
 from ocaml_hnsw_tpu_torch.models.graph import GraphTensors
+from ocaml_hnsw_tpu_torch import io as index_io
 
 
 def _check_space(space: str) -> None:
@@ -106,7 +109,7 @@ class Index:
 
     def _require_init(self) -> BuildState:
         if self._state is None:
-            raise RuntimeError("call init_index first")
+            raise RuntimeError("call init_index (or load_index) first")
         return self._state
 
     @property
@@ -153,6 +156,53 @@ class Index:
     def unmark_deleted(self, label: int) -> None:
         self.graph.deleted[self._id_of(label)] = False
 
+    @torch.no_grad()
+    def resize_index(self, new_max_elements: int) -> None:
+        """Grow capacity (graph tensors re-padded; the arena's sink row moves
+        to the new last row — the old one is all -1 and becomes an
+        allocatable row).  The level stream continues."""
+        st = self._require_init()
+        if new_max_elements < st.host_n:
+            raise ValueError("cannot shrink below current element count")
+        old = st.graph
+        new_state = BuildState(st.config, new_max_elements,
+                               round_size=st.round_size, device=self.device)
+        grow = new_state.graph.n_cap - old.n_cap
+        if grow < 0:
+            raise ValueError("resize would shrink padded capacity")
+        t_grow = new_state.graph.t_cap - old.t_cap
+        if t_grow < 0:
+            raise ValueError("resize would shrink the upper arena")
+        new_state.graph = None  # free the empty graph before padding
+
+        def pad_rows(a, rows, fill):
+            out = torch.full((a.shape[0] + rows, *a.shape[1:]), fill,
+                             dtype=a.dtype, device=a.device)
+            out[:a.shape[0]] = a
+            return out
+
+        graph = GraphTensors(
+            vectors=pad_rows(old.vectors, grow, 0),
+            scales=pad_rows(old.scales, grow, 1.0),
+            norms=pad_rows(old.norms, grow, 0.0),
+            adj0=pad_rows(old.adj0, grow, -1),
+            adj_up=pad_rows(old.adj_up, t_grow, -1),
+            up_base=pad_rows(old.up_base, grow, -1),
+            up_n=old.up_n.clone(),
+            levels=pad_rows(old.levels, grow, -1),
+            entry=old.entry.clone(),
+            max_level=old.max_level.clone(),
+            n=old.n.clone(),
+            deleted=pad_rows(old.deleted, grow, False),
+            l_max_static=max(new_state.l_max, old.l_max),
+        )
+        new_state.rng = st.rng  # continue the level-sampling stream
+        new_state.l_max = graph.l_max
+        new_state.adopt_graph(graph)
+        self._state = new_state
+        self._seeds = None
+        self._packed = None
+
     # --------------------------------------------------------------- queries
     def set_ef(self, ef: int) -> None:
         self.ef = int(ef)
@@ -190,6 +240,7 @@ class Index:
 
     def knn_query(self, data, k: int = 1, ef: int | None = None,
                   max_iters: int | None = None,
+                  compact_k: int | str | None = "auto",
                   engine: str = "auto",
                   expand: int | None = None,
                   expand_schedule: tuple | None = None,
@@ -198,44 +249,54 @@ class Index:
                   **_ignored):
         """Returns (labels i64[Q, k], dists f32[Q, k]); -1 label on padding.
 
-        engine="auto"/"packed" serves from the packed engine (seed-scan
-        entry, inline int8 beam, exact f32 rerank); "classic", and "auto" on
-        an index the packed engine does not take, raise NotImplementedError
-        (the classic engine is not ported yet)."""
+        engine="auto" serves large matmul-metric indexes from the packed
+        engine (seed-scan entry, inline int8 beam, exact f32 rerank) and
+        everything else from the classic engine (seed-scan entry on graphs
+        of SEED_THRESHOLD nodes or more, else greedy descent; expand 4;
+        compact_k="auto" = 3/4·4·M_max0 on seed-scan graphs when that is
+        >= 96).  engine="classic"/"packed" forces a path (packed raises if
+        unavailable).  expand / expand_schedule / rerank_k / interleave
+        apply to the packed engine, compact_k to the classic one."""
         st = self._require_init()
         if st.host_n == 0:
             raise RuntimeError("index is empty")
         if engine not in ("auto", "classic", "packed"):
             raise ValueError(f"engine must be auto|classic|packed, got {engine!r}")
-        packed = self._packed_index() if engine in ("auto", "packed") else None
-        if packed is None:
-            raise NotImplementedError(
-                "classic query engine: later PR (the packed engine needs "
-                f">= {self.PACKED_THRESHOLD} nodes, a matmul metric and a "
-                "payload within PACKED_BUDGET_BYTES)")
         data = np.atleast_2d(np.asarray(data, dtype=np.float32))
         q_n = data.shape[0]
         b = _pad_batch(q_n)
         padded = np.zeros((b, self.dim), np.float32)
         padded[:q_n] = data
+        queries = torch.from_numpy(padded).to(self.device)
+        ef = max(ef if ef is not None else self.ef, k)
         seeds = self._seed_index()
-        from ocaml_hnsw_tpu_torch.models.packed import knn_search_packed
+        packed = self._packed_index() if engine in ("auto", "packed") else None
+        if engine == "packed" and packed is None:
+            raise RuntimeError(
+                "packed engine unavailable: index too small, metric has no "
+                "matmul form, or payload exceeds PACKED_BUDGET_BYTES"
+            )
+        if packed is not None:
+            from ocaml_hnsw_tpu_torch.models.packed import knn_search_packed
 
-        ids, dists = knn_search_packed(
-            st.graph,
-            packed,
-            torch.from_numpy(padded).to(self.device),
-            k=k,
-            ef=max(ef if ef is not None else self.ef, k),
-            metric=self.space,
-            max_iters=max_iters,
-            seeds=seeds,
-            seed_e=8,
-            expand=2 if expand is None else expand,
-            expand_schedule=expand_schedule,
-            rerank_k=rerank_k,
-            interleave=interleave if b % max(interleave, 1) == 0 else 1,
-        )
+            ids, dists = knn_search_packed(
+                st.graph, packed, queries, k=k, ef=ef, metric=self.space,
+                max_iters=max_iters, seeds=seeds, seed_e=8,
+                expand=2 if expand is None else expand,
+                expand_schedule=expand_schedule, rerank_k=rerank_k,
+                interleave=interleave if b % max(interleave, 1) == 0 else 1,
+            )
+        else:
+            from ocaml_hnsw_tpu_torch.models.search import knn_search
+
+            if compact_k == "auto":
+                m0 = st.config.M_max0
+                compact_k = (3 * 4 * m0) // 4 if (
+                    seeds is not None and 4 * m0 >= 128) else None
+            ids, dists = knn_search(
+                st.graph, queries, k=k, ef=ef, metric=self.space,
+                max_iters=max_iters, seeds=seeds, compact_k=compact_k,
+            )
         ids = ids.cpu().numpy()[:q_n]
         dists = dists.cpu().numpy()[:q_n]
         labels = np.where(ids >= 0, self._labels[np.maximum(ids, 0)], -1)
@@ -251,8 +312,56 @@ class Index:
     def get_ids_list(self) -> list[int]:
         return self._labels.tolist()
 
+    def get_items(self, ids) -> np.ndarray:
+        """Stored vectors as f32 (int8 storage dequantized by the per-row
+        scales; cosine rows are the normalized form, as in hnswlib)."""
+        from ocaml_hnsw_tpu_torch.ops.distance import gather_dequant
+
+        st = self._require_init()
+        iids = np.array([self._id_of(l) for l in np.asarray(ids).reshape(-1)],
+                        dtype=np.int64)
+        rows = gather_dequant(st.graph.vectors, st.graph.scales,
+                              torch.from_numpy(iids[None, :]).to(self.device))
+        return rows[0].cpu().numpy()
+
     def _id_of(self, label) -> int:
         try:
             return self._label_to_id[int(label)]
         except KeyError:
             raise KeyError(f"label {label} not in index") from None
+
+    # ----------------------------------------------------------- checkpoints
+    def save_index(self, path) -> None:
+        st = self._require_init()
+        index_io.save_index_file(
+            path, st.graph, st.config, self._labels,
+            rng_state=st.rng.get_state(), max_elements=st.max_elements,
+            ef=self.ef,
+        )
+
+    def load_index(self, path, max_elements: int | None = None) -> None:
+        """Load a file of either package; max_elements above the saved
+        capacity resizes on load (as hnswlib does)."""
+        (graph, config, labels, rng_state, saved_max,
+         ef) = index_io.load_index_file(path, self.device)
+        if config.metric != self.space or config.dim != self.dim:
+            raise ValueError(
+                f"index file is ({config.metric}, dim={config.dim}), this "
+                f"Index is ({self.space}, dim={self.dim})"
+            )
+        self.ef = ef
+        # round padding must stay inside the saved capacity headroom
+        round_size = max(1, min(1024, graph.n_cap - saved_max - 1))
+        st = BuildState(config, saved_max, round_size=round_size,
+                        device=self.device)
+        st.adopt_graph(graph)
+        st.l_max = graph.l_max
+        if rng_state is not None:
+            st.rng.set_state(rng_state)
+        self._state = st
+        self._seeds = None
+        self._packed = None
+        self._labels = labels
+        self._label_to_id = {int(l): i for i, l in enumerate(labels)}
+        if max_elements is not None and max_elements > saved_max:
+            self.resize_index(max_elements)  # hnswlib resize-on-load

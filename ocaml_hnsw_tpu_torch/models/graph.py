@@ -51,6 +51,12 @@ class GraphTensors:
     def _replace(self, **kw) -> "GraphTensors":
         return dataclasses.replace(self, **kw)
 
+    def clone(self) -> "GraphTensors":
+        """A copy that shares no tensor (the build updates graphs in
+        place)."""
+        return self._replace(**{f: getattr(self, f).clone()
+                                for f in self._fields})
+
     @property
     def n_cap(self) -> int:
         return self.vectors.shape[0]
@@ -62,6 +68,10 @@ class GraphTensors:
     @property
     def l_max(self) -> int:
         return self.l_max_static
+
+    @property
+    def t_cap(self) -> int:
+        return self.adj_up.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -112,6 +122,18 @@ def upper_view(graph: GraphTensors, level: int) -> UpperView:
                      levels=graph.levels, level=level)
 
 
+def dense_upper(graph: GraphTensors, level: int) -> np.ndarray:
+    """One upper layer as a host [n, M] matrix (tests/debug)."""
+    n = int(graph.n)
+    ub = graph.up_base[:n].cpu().numpy()
+    lv = graph.levels[:n].cpu().numpy()
+    table = graph.adj_up.cpu().numpy()
+    out = np.full((n, table.shape[1]), -1, np.int32)
+    ok = (lv >= level) & (ub >= 0)
+    out[ok] = table[ub[ok] + level - 1]
+    return out
+
+
 def empty_graph(config: HnswConfig, max_elements: int,
                 device: torch.device | str) -> GraphTensors:
     from ocaml_hnsw_tpu_torch.ops.quantize import storage_dtype
@@ -142,7 +164,9 @@ def empty_graph(config: HnswConfig, max_elements: int,
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from the JAX package
+    # bf16 from the JAX package: ml_dtypes' bfloat16, or its raw 2-byte
+    # values (V2) as np.load returns them
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         bits = np.ascontiguousarray(a).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
@@ -158,13 +182,17 @@ def graph_from_numpy(arrays, l_max_static: int,
     )
 
 
-def graph_to_numpy(g: GraphTensors) -> dict:
-    """Field name -> numpy array (bf16 vectors widen to f32: numpy has no
-    bfloat16)."""
+def graph_to_numpy(g: GraphTensors, bf16_bits: bool = False) -> dict:
+    """Field name -> numpy array.  numpy has no bfloat16: bf16 vectors widen
+    to f32, or with bf16_bits=True come out as their raw 2-byte values
+    (dtype V2, what np.save writes for the JAX package's bfloat16)."""
     out = {}
     for f in GraphTensors._fields:
         t = getattr(g, f).detach().cpu()
         if t.dtype == torch.bfloat16:
+            if bf16_bits:
+                out[f] = t.view(torch.int16).numpy().view("V2")
+                continue
             t = t.float()
         out[f] = t.numpy()
     return out

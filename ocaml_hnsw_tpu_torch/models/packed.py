@@ -18,9 +18,16 @@ f32 rerank (K2) makes the returned order exact.
 
 Layout: the JAX package stores the payload as [N_cap·C, W] chunk rows (a
 TPU gather choice); this port stores the same bytes as [N_cap, deg, d_pad],
-the same row-major order, so `packed_from_numpy` is a reshape.  The int4
-payload (`bits=4`), fused meta rows, `deg_limit` and build-time payload
-upkeep (`with_dist`) are not ported yet.
+the same row-major order, so `packed_from_numpy` is a reshape.
+
+Build-time upkeep (`empty_packed`, `refresh_payload_rows`, `pack_graph(...,
+with_dist=True)`): a build into a large index keeps the payload in step with
+the adjacency round by round (models/build.py), plus `dist`, the exact f32
+distance of every adjacency slot.  Those distances are computed by
+`dists_to_ids` (K2 on the card) everywhere they arise, so that the
+maintained table equals a fresh `pack_graph(..., with_dist=True)` bit for
+bit.  The int4 payload (`bits=4`), fused meta rows and `deg_limit` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +42,9 @@ from ocaml_hnsw_tpu_torch.models.search import (
     SeedIndex, descend, preprocess_queries, seed_entries,
 )
 from ocaml_hnsw_tpu_torch.ops.bitset import first_occurrence_mask
-from ocaml_hnsw_tpu_torch.ops.distance import INF, dists_to_ids, query_norms
+from ocaml_hnsw_tpu_torch.ops.distance import (
+    INF, dists_to_ids, gather_dequant, query_norms,
+)
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import packed_score
 from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 from ocaml_hnsw_tpu_torch.ops.sortmerge import (
@@ -56,11 +65,15 @@ class PackedGraph:
     meta:  int32[N_cap, 2·deg]      [adjacency ids | int32 norms ‖x8‖²];
                                     ids are -1 sentinels as in adj0
     scale: f32[]                    the global quantization scale s
+    dist:  f32[N_cap, deg] or None  build-maintained packs only: exact
+                                    d(node, neighbour) per slot, +inf on
+                                    empty slots
     """
 
     pay: torch.Tensor
     meta: torch.Tensor
     scale: torch.Tensor
+    dist: torch.Tensor | None = None
 
     @property
     def deg(self) -> int:
@@ -75,19 +88,23 @@ class PackedGraph:
         return self.pay.shape[2]
 
 
-def packed_from_numpy(pay, meta, scale,
-                      device: torch.device | str) -> PackedGraph:
+def packed_from_numpy(pay, meta, scale, device: torch.device | str,
+                      dist=None) -> PackedGraph:
     """PackedGraph from the JAX package's arrays (`np.asarray` of its pay
-    [N_cap·C, W], meta and scale): the payload bytes are row-major per node,
-    so [N_cap·C, W] reshapes to [N_cap, deg, d_pad]."""
+    [N_cap·C, W], meta, scale and optional dist): the payload bytes are
+    row-major per node, so [N_cap·C, W] reshapes to [N_cap, deg, d_pad]."""
     meta = np.asarray(meta)
     n_cap, deg = meta.shape[0], meta.shape[1] // 2
     pay = np.asarray(pay).reshape(n_cap, deg, -1)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
     return PackedGraph(
-        pay=torch.from_numpy(np.array(pay, copy=True)).to(device),
-        meta=torch.from_numpy(np.array(meta, copy=True)).to(device),
+        pay=put(pay), meta=put(meta),
         scale=torch.tensor(float(np.asarray(scale)), dtype=torch.float32,
                            device=device),
+        dist=None if dist is None else put(np.asarray(dist)),
     )
 
 
@@ -119,9 +136,9 @@ def pack_graph(graph: GraphTensors, metric: str, scale=None,
         )
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if bits != 8 or fused or with_dist:
+    if bits != 8 or fused:
         raise NotImplementedError(
-            "pack_graph: bits=4, fused and with_dist are not ported yet")
+            "pack_graph: bits=4 and fused are not ported yet")
     vectors, scales, adj0 = graph.vectors, graph.scales, graph.adj0
     dev = vectors.device
     n_cap, deg = adj0.shape
@@ -138,22 +155,79 @@ def pack_graph(graph: GraphTensors, metric: str, scale=None,
     inv_s = 1.0 / s
     pay = torch.zeros((n_cap, deg, d_pad), dtype=torch.int8, device=dev)
     meta = torch.zeros((n_cap, 2 * deg), dtype=torch.int32, device=dev)
+    dist = (torch.full((n_cap, deg), INF, device=dev) if with_dist
+            else None)
     for start in range(0, n_cap, PACK_SLAB_ROWS):
         a = adj0[start:start + PACK_SLAB_ROWS]  # [S, deg]
-        safe = a.clamp_min(0).long()
-        rows = vectors[safe].float()
-        if vectors.dtype == torch.int8:
-            rows = rows * scales[safe][:, :, None]
+        rows = gather_dequant(vectors, scales, a)  # [S, deg, D] f32
         y = torch.clamp(torch.round(rows * inv_s), -127, 127).to(torch.int8)
         pay[start:start + PACK_SLAB_ROWS, :, :d] = y
         meta[start:start + PACK_SLAB_ROWS, :deg] = a
         meta[start:start + PACK_SLAB_ROWS, deg:] = _int8_sqnorm(y)
-    return PackedGraph(pay=pay, meta=meta, scale=s.to(torch.float32))
+        if with_dist:
+            own = torch.arange(start, start + a.shape[0], device=dev)
+            dist[start:start + PACK_SLAB_ROWS] = _slot_dists(
+                vectors, scales, own, a, metric)
+    return PackedGraph(pay=pay, meta=meta, scale=s.to(torch.float32),
+                       dist=dist)
+
+
+def _slot_dists(vectors, scales, own, adj_rows, metric: str):
+    """Exact d(node, neighbour) for each slot of `adj_rows` (i32[A, deg],
+    the adjacency rows of nodes `own`), +inf on empty slots — through K2,
+    the same arithmetic as every other distance of a build."""
+    q = gather_dequant(vectors, scales, own[:, None])[:, 0]  # [A, D]
+    return dists_to_ids(vectors, scales, None, q, None, adj_rows, metric)
 
 
 def quantize_queries(q, scale):
     """Round preprocessed queries onto the payload's s-grid (int8[B, D])."""
     return torch.clamp(torch.round(q / scale), -127, 127).to(torch.int8)
+
+
+# --------------------------------------------------- build-time maintenance
+def empty_packed(n_cap: int, deg: int, dim: int, scale,
+                 device: torch.device | str) -> PackedGraph:
+    """All-sentinel payload for an empty graph (meta ids -1, zero norms,
+    dists +inf).  Build-maintained packs always carry `dist`."""
+    meta = torch.zeros((n_cap, 2 * deg), dtype=torch.int32, device=device)
+    meta[:, :deg] = -1
+    return PackedGraph(
+        pay=torch.zeros((n_cap, deg, pack_d_pad(dim)), dtype=torch.int8,
+                        device=device),
+        meta=meta,
+        scale=torch.as_tensor(scale, dtype=torch.float32).to(device),
+        dist=torch.full((n_cap, deg), INF, device=device),
+    )
+
+
+def quantize_payload_rows(v, scale):
+    """Stored f32 rows onto the payload's grid, as `pack_graph` rounds them
+    (multiply by 1/s), padded to d_pad: (int8[..., d_pad], int32 ‖y‖²)."""
+    y = torch.clamp(torch.round(v * (1.0 / scale)), -127, 127).to(torch.int8)
+    nrm = _int8_sqnorm(y)
+    d = v.shape[-1]
+    d_pad = pack_d_pad(d)
+    if d_pad > d:
+        y = torch.nn.functional.pad(y, (0, d_pad - d))
+    return y, nrm
+
+
+def refresh_payload_rows(packed: PackedGraph, vectors, scales, adj0, rows,
+                         metric: str = "l2") -> PackedGraph:
+    """Recompute pay/meta (and dist, when maintained) in place for node ids
+    `rows` (i32[A]; duplicates compute identical values; the sink row
+    recomputes to all-sentinel).  `vectors` must already hold the current
+    rows.  Returns `packed`."""
+    rows = rows.long()
+    a = adj0[rows]  # [A, deg]
+    y, nrm = quantize_payload_rows(gather_dequant(vectors, scales, a),
+                                   packed.scale)
+    packed.pay[rows] = y
+    packed.meta[rows] = torch.cat([a, nrm], dim=1)
+    if packed.dist is not None:
+        packed.dist[rows] = _slot_dists(vectors, scales, rows, a, metric)
+    return packed
 
 
 def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,

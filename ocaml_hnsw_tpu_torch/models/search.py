@@ -1,15 +1,22 @@
-"""Layer-0 entry for the packed engine, ported from
-`ocaml_hnsw_tpu/models/search.py`: the seed scan (`SeedIndex`,
-`build_seed_index`, `seed_entries`), greedy descent (`descend`,
-`_greedy_level`) and query preprocessing.
+"""The classic query engine and the layer-0 entry, ported from
+`ocaml_hnsw_tpu/models/search.py`: the lockstep beam (`beam_search_layer`,
+with beam-only, exact-bitset and hashed-bitset dedup and `compact_k`),
+`knn_search`, the seed scan (`SeedIndex`, `build_seed_index`,
+`seed_entries`), greedy descent (`descend`, `_greedy_level`) and query
+preprocessing.  Every candidate block is scored by `dists_to_ids`, i.e. by
+the gather-distance kernel (K2) on the card.
 
 The seed scan is one matrix product of the queries against every level>=1
 node's bf16 vector, top-E by bf16 score, then an exact re-score of the E
 winners through the gather-distance kernel.  The JAX package's
 `approx_min_k` becomes exact `torch.topk`; ties among bf16 scores may pick
 other seeds, so seeded searches agree with the JAX package at recall level.
-The classic beam engine (`beam_search_layer`, `knn_search`) is not ported
-yet.
+
+The JAX `while_loop`s become host loops.  The beam loop asks the device
+whether any beam member is unexpanded only every CONVERGE_CHECK iterations:
+once every member is expanded an iteration selects no node, scores no
+candidate and leaves the beam as it was, so the extra iterations change
+nothing, and `max_iters` still bounds the count exactly.
 """
 
 from __future__ import annotations
@@ -23,8 +30,27 @@ import torch
 from ocaml_hnsw_tpu_torch.models.graph import (
     GraphTensors, adj_take, upper_view,
 )
-from ocaml_hnsw_tpu_torch.ops.distance import dists_to_ids, gather_dequant
+from ocaml_hnsw_tpu_torch.ops.bitset import (
+    bitset_new, bitset_set, bitset_test, first_occurrence_mask, hash_ids,
+)
+from ocaml_hnsw_tpu_torch.ops.distance import (
+    INF, dists_to_ids, gather_dequant, query_norms,
+)
 from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+from ocaml_hnsw_tpu_torch.ops.sortmerge import (
+    entries_to_beam, merge_into_beam, topk_ascending,
+)
+
+#: beam loops read "any member unexpanded?" on the host every this many
+#: iterations (module docstring)
+CONVERGE_CHECK = 4
+
+
+def _visit_idx(ids, visited_bits: int | None):
+    """Index into the visited bitmap for each id (identity or hashed)."""
+    if visited_bits is None:
+        return ids.clamp_min(0)
+    return hash_ids(ids, visited_bits)
 
 
 def _greedy_level(vectors, scales, norms, adj, q, qn, cur, cur_d, enabled,
@@ -43,6 +69,106 @@ def _greedy_level(vectors, scales, norms, adj, q, qn, cur, cur_d, enabled,
         cur_d = torch.where(better, bd, cur_d)
         active = better
     return cur, cur_d
+
+
+@torch.no_grad()
+def beam_search_layer(
+    vectors,
+    scales,
+    norms,
+    adj,  # i32[N_cap, deg] layer table, or an UpperView
+    q,  # f32[B, D]
+    qn,  # f32[B]
+    entry_ids,  # i32[B, E0]  (-1 padded)
+    entry_d,  # f32[B, E0]  (+inf at sentinel)
+    ef: int,
+    metric: str,
+    max_iters: int | None = None,
+    expand: int = 1,
+    visited_bits: int | None = None,
+    compact_k: int | None = None,
+):
+    """Beam search one layer for B queries; returns (ids, d, iters):
+    i32/f32[B, ef] sorted ascending by distance (-1/+inf padded) plus the
+    number of loop iterations in which some beam still had an unexpanded
+    member (a 0-d device tensor, the JAX loop's count).
+
+    visited_bits: 0 = beam-only dedup (candidates dedup against the current
+    beam), None = exact bitset over N_cap, b = hashed 2^b-bit bitset.
+    compact_k (beam-only dedup): pack the fresh candidates left and score
+    only the first compact_k of the expand·deg slots."""
+    b = q.shape[0]
+    dev = q.device
+    expand = max(1, min(expand, ef))
+    beam_only = visited_bits == 0
+    if compact_k is not None and not beam_only:
+        raise ValueError(
+            "compact_k requires beam-only dedup (visited_bits=0): a bitset "
+            "would mark compacted-away candidates visited and never revisit"
+        )
+    n_bits = vectors.shape[0] if visited_bits is None else 1 << visited_bits
+
+    # dedup entries on the visit index so the scatter-OR stays exact
+    vidx = _visit_idx(entry_ids, None if beam_only else visited_bits)
+    uniq = first_occurrence_mask(vidx) & (entry_ids >= 0)
+    entry_ids = torch.where(uniq, entry_ids, -1)
+    entry_d = torch.where(uniq, entry_d, INF)
+    visited = None
+    if not beam_only:
+        visited = bitset_set(bitset_new(b, n_bits, dev), vidx, uniq)
+
+    # beam state packs (id, expanded) into one int32: pk = 2·id + exp
+    beam_ids, beam_d = entries_to_beam(entry_ids, entry_d, ef)
+    beam_pk = torch.where(beam_ids < 0, -1, beam_ids * 2)
+    ar = torch.arange(1, expand + 1, dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    it = 0
+    while max_iters is None or it < max_iters:
+        unexp = (beam_pk & 1) == 0
+        live = torch.any(unexp)
+        if it % CONVERGE_CHECK == 0 and not bool(live):
+            break
+        iters += live.to(torch.int32)
+        # 1. the E nearest unexpanded members (beam sorted ⇒ cumsum mask)
+        slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
+        sel_mask = unexp & (slot <= expand)
+        beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
+        oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
+        pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
+        active = torch.any(oh, dim=2)
+        nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
+        # 2. frontier expansion: adjacency gather
+        nbrs = adj_take(adj, nodes.clamp_min(0))  # [B, E, deg]
+        nbrs = torch.where((nodes >= 0)[:, :, None], nbrs, -1).reshape(b, -1)
+        # 3. beam-only dedup, or visited filter + mark on the visit index
+        if beam_only:
+            in_beam = torch.any(
+                nbrs[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
+            fresh = (nbrs >= 0) & ~in_beam & first_occurrence_mask(nbrs)
+        else:
+            ok = nbrs >= 0
+            nvidx = _visit_idx(nbrs, visited_bits)
+            fresh = (ok & ~bitset_test(visited, nvidx, ok)
+                     & first_occurrence_mask(torch.where(ok, nvidx, -1)))
+            visited = bitset_set(visited, nvidx, fresh)
+        cand_ids = torch.where(fresh, nbrs, -1)
+        if compact_k is not None and compact_k < cand_ids.shape[1]:
+            # fresh ids packed left in slot order (the kept keys are
+            # distinct, so a stable sort equals the JAX bitonic network)
+            kk = cand_ids.shape[1]
+            slots = torch.arange(kk, dtype=torch.int32, device=dev)
+            key = torch.where(fresh, slots[None, :], kk)
+            skey, order = torch.sort(key, dim=1, stable=True)
+            cand_ids = torch.where(skey[:, :compact_k] < kk,
+                                   torch.gather(cand_ids, 1,
+                                                order[:, :compact_k]), -1)
+        # 4. distance block (K2), 5. bitonic merge into the beam
+        cand_d = dists_to_ids(vectors, scales, norms, q, qn, cand_ids, metric)
+        cand_pk = torch.where(cand_ids < 0, -1, cand_ids * 2)
+        beam_d, (beam_pk,) = merge_into_beam(
+            beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef)
+        it += 1
+    return beam_pk >> 1, beam_d, iters
 
 
 @dataclasses.dataclass
@@ -137,6 +263,55 @@ def descend(graph: GraphTensors, q, qn, metric: str, stop_level: int = 0):
             q, qn, cur, cur_d, enabled, metric,
         )
     return cur, cur_d
+
+
+@torch.no_grad()
+def knn_search(
+    graph: GraphTensors,
+    queries,  # f32[B, D]
+    k: int,
+    ef: int,
+    metric: str,
+    max_iters: int | None = None,
+    expand: int | None = None,
+    visited_bits: int | None = None,
+    seeds: SeedIndex | None = None,
+    seed_e: int = 16,
+    compact_k: int | None = None,
+):
+    """Full Alg 5 on the classic engine: entry into layer 0 (greedy descent,
+    or the seed scan when `seeds` is given), then an ef-wide beam; returns
+    (ids i32[B, k], dists f32[B, k]) ascending, -1/+inf padded, tombstoned
+    nodes traversed but filtered.  Defaults as in the JAX package: expand 4,
+    beam-only dedup, and max_iters=None capped at max(64, 8·ef/expand) so
+    tie churn terminates."""
+    ef = max(ef, k)
+    if expand is None:
+        expand = 4
+    if visited_bits is None:
+        visited_bits = 0  # beam-only dedup: the same trajectory, faster
+    if max_iters is None:
+        max_iters = max(64, (8 * ef) // max(1, expand))
+    if seeds is not None and get_metric(metric).matmul_score is None:
+        seeds = None  # registry metric without a matmul form: descent
+    q = preprocess_queries(queries, metric)
+    qn = query_norms(q, metric)
+    if seeds is not None:
+        entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e, metric)
+    else:
+        cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
+        entry_ids, entry_d = cur[:, None], cur_d[:, None]
+    ids, d, _ = beam_search_layer(
+        graph.vectors, graph.scales, graph.norms, graph.adj0, q, qn,
+        entry_ids, entry_d, ef, metric, max_iters, expand=expand,
+        visited_bits=visited_bits, compact_k=compact_k,
+    )
+    # tombstone filter, then the final top-k (masking reorders the beam)
+    dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
+    d = torch.where(dead, INF, d)
+    out_d, out_ids = topk_ascending(d, torch.where(dead, -1, ids), k)
+    out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
+    return out_ids, out_d
 
 
 def preprocess_queries(q, metric: str):

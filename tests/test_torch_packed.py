@@ -116,11 +116,27 @@ class TestPackGraph:
 
     def test_off_path_options_raise(self, clustered_graphs):
         _, _, tg = clustered_graphs
-        for kw in (dict(bits=4), dict(fused=True), dict(with_dist=True)):
+        for kw in (dict(bits=4), dict(fused=True)):
             with pytest.raises(NotImplementedError):
                 tpacked.pack_graph(tg, "l2", **kw)
         with pytest.raises(ValueError):
             tpacked.pack_graph(tg, "l2", bits=2)
+
+    @pytest.mark.parametrize("scale", [None, 0.5])
+    def test_with_dist_equals_jax(self, clustered_graphs, scale):
+        """with_dist=True: payload and meta bit-identical to JAX's, the
+        per-slot distances equal to rtol 1e-6 (f32 summation order), +inf
+        on the same empty slots."""
+        _, jg, tg = clustered_graphs
+        jp = jpacked.pack_graph(jg, "l2", scale=scale, with_dist=True)
+        tp = tpacked.pack_graph(tg, "l2", scale=scale, with_dist=True)
+        np.testing.assert_array_equal(
+            tp.pay.numpy(), np.asarray(jp.pay).reshape(tp.pay.shape))
+        np.testing.assert_array_equal(tp.meta.numpy(), np.asarray(jp.meta))
+        jd = np.asarray(jp.dist)
+        np.testing.assert_array_equal(np.isinf(tp.dist.numpy()), np.isinf(jd))
+        np.testing.assert_allclose(tp.dist.numpy(), jd, rtol=1e-6)
+        assert tpacked.pack_graph(tg, "l2").dist is None
 
 
 GRID_CASES = {
