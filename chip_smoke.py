@@ -7,13 +7,22 @@ their results against exact ground truth computed on the card:
      10k x 128, L2): incremental build, classic-engine queries, save_index /
      load_index with a resize, an add after the load;
   B. streaming ingest at the shapes of bench.py `laion-streaming` (768-d,
-     cosine), depth cut to 96k rows: a warm add, then 10 ingest steps each
-     followed by one 4096-query batch per (ef, max_iters) setting;
+     cosine), depth cut to 96k rows, through the port's
+     `run_streaming_config`: a warm add, then 10 ingest steps each followed
+     by one 4096-query batch per (ef, max_iters) setting;
   main. the SIFT1M main path (1M x 128-d, L2, M=16): `Index.add_items`
      (bulk build) and `Index.knn_query` (packed engine);
   C. resize_index and a 50k-row add on top of that bulk-built index (the
      build-maintained payload: K1 in the construction beam), then the main
-     path's queries again over all 1.05M rows.
+     path's queries again over all 1.05M rows;
+  D. the port's benchmark harness (`bench/harness.py::run_config`) and the
+     flat indexes: D1 bench.py `glove1m` at full scale (1,183,514 x 100,
+     cosine: bulk build, packed sweep, flat sweep); D2 the flat engine of
+     bench.py `deep10m` (10M x 96, L2, int8 scan, bf16 rerank rows; its HNSW
+     half is left out: at the incremental build's rate 10M rows take over an
+     hour); D3 `BFIndex` over the main path's 1M rows against the exact
+     ground truth, a `FlatIndex` save/load, and `Index` and `FlatIndex`
+     under a registered L1 metric.
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # build + kernel checks on
@@ -35,9 +44,11 @@ beside its bound: the bytes the call must move (every distinct row or slab
 it touches read once, every output written once) over 3.35 TB/s, or its
 operations over the peak rate for their type if that is longer.
 
-The kernels are also held and timed at the new paths' shapes, on inputs
-captured there: K2 on a phase-A build round's candidate block and on a
-phase-B query batch's, K1 on a phase-C construction beam step.  Launch
+The kernels are also held and timed at the other paths' shapes, on inputs
+captured there: K2 on a phase-A build round's candidate block, on a
+phase-B query batch's and on the flat engines' rerank blocks of D1 and D2,
+K1 on a phase-C construction beam step.  Ground truth everywhere is the
+harness's `device_ground_truth` (exact f32 on the card).  Launch
 counters are zeroed before each phase and read after it; a phase whose path
 runs a kernel fails if that kernel did not launch.
 
@@ -63,8 +74,10 @@ import time
 import numpy as np
 import torch
 
-from ocaml_hnsw_tpu_torch import Index
+from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex, Index
+from ocaml_hnsw_tpu_torch.bench import harness as harness_mod
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
+from ocaml_hnsw_tpu_torch.bench.harness import device_ground_truth, recall_of
 from ocaml_hnsw_tpu_torch.models import build as build_mod
 from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
 from ocaml_hnsw_tpu_torch.models import flat as flat_mod
@@ -78,7 +91,9 @@ from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
     packed_score, packed_score_plain,
 )
+from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+from ocaml_hnsw_tpu_torch.utils.profiling import search_stats
 
 N, DIM, M, EFC = 1_000_000, 128, 16, 200
 N_QUERIES, QPS_BATCH = 1000, 8192
@@ -97,6 +112,14 @@ B_SETTINGS = ((96, 16), (128, 24))
 B_FLOOR = 0.90  # at (128, 24)
 #: phase C: resize + add on top of the main path's bulk-built index
 C_MAX, C_ADD, C_FLOOR = 1_050_000, 50_000, 0.90
+#: phase D1: bench.py glove1m, full scale; D2: bench.py deep10m's flat
+#: engine, full scale; D3: registered-metric indexes
+D1 = dict(n=1_183_514, dim=100, metric="cosine", round_size=2048,
+          ef_construction=200, engines=("hnsw", "flat"))
+D2 = dict(n=10_000_000, dim=96, metric="l2", engines=("flat",),
+          scan_dtype="int8", rerank_dtype="bf16")
+D_FLOOR = 0.95
+D3_N, D3_DIM, D3_FLAT_N = 20_000, 32, 100_000
 #: the classic engine's candidate compaction at M=16 (knn_query "auto")
 COMPACT_K = 96
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
@@ -259,6 +282,37 @@ def recording(module, name: str):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def metering(owner, name: str):
+    """Replace `owner.name` by a pass-through that notes the kernel launches
+    of every call (the counters read before and after it) and keeps the
+    arguments of the last call only."""
+    calls = []
+    real = getattr(owner, name)
+
+    def metered(*args, **kwargs):
+        before = read_launches()
+        out = real(*args, **kwargs)
+        after = read_launches()
+        if calls:
+            calls[-1].pop("args")
+            calls[-1].pop("kwargs")
+        calls.append(dict(launches={k: after[k] - before[k] for k in after},
+                          args=args, kwargs=kwargs))
+        return out
+
+    setattr(owner, name, metered)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def sum_launches(calls) -> dict:
+    return {k: sum(c["launches"][k] for c in calls)
+            for k in ("gather_dists", "packed_score")}
+
+
 def reset_launches() -> None:
     gather_dists.launches = 0
     packed_score.launches = 0
@@ -280,8 +334,9 @@ def busy_share(fn, name: str) -> dict:
     device time summed by torch.profiler over the wall time of the profiled
     call; profiling adds host time, so this reads low; None when the
     profiler records no device time), the number of device kernels, and the
-    wall time per kernel.  With --profile-dir DIR the op table (by host
-    time) goes to DIR/profile_<name>.txt."""
+    wall time per kernel, and the six device kernels with the most device
+    time as [name, ms, count].  With --profile-dir DIR the op table (by
+    host time) goes to DIR/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -300,9 +355,12 @@ def busy_share(fn, name: str) -> dict:
         os.makedirs(PROFILE_DIR, exist_ok=True)
         with open(os.path.join(PROFILE_DIR, f"profile_{name}.txt"), "w") as f:
             f.write(stats.table(sort_by="self_cpu_time_total", row_limit=40))
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     return dict(share=dev_us / 1e6 / wall if dev_us > 0 else None,
                 kernels=kernels, wall_s=wall,
-                us_per_kernel=wall * 1e6 / kernels if kernels else None)
+                us_per_kernel=wall * 1e6 / kernels if kernels else None,
+                top=[[e.key[:70], round(e.self_device_time_total / 1e3, 2),
+                      e.count] for e in top])
 
 
 def fmt_share(busy: dict) -> str:
@@ -311,12 +369,6 @@ def fmt_share(busy: dict) -> str:
     return (f"device busy {busy['share']:.0%} of {busy['wall_s'] * 1e3:.0f} "
             f"ms, {busy['kernels']} kernels = {busy['us_per_kernel']:.1f} us "
             f"of wall each")
-
-
-def recall_of(labels: np.ndarray, gt: np.ndarray) -> float:
-    k = gt.shape[1]
-    return float(np.mean([len(set(a) & set(b)) / k
-                          for a, b in zip(labels.tolist(), gt.tolist())]))
 
 
 def check_result(labels, dists, n_q: int, k: int) -> None:
@@ -618,28 +670,9 @@ def kernels_only(gen) -> int:
         q = torch.randn((b, DIM), device=DEV, generator=g)
         k2_case(f"cold synthetic {b}x{k}", xs, torch.ones(N, device=DEV),
                 q, ids, "l2", flush, time_it=True)
+    check_int8_scan(gen)
     say("[kernels-only] all kernel checks passed")
     return 0
-
-
-def ground_truth(x: torch.Tensor, q: torch.Tensor, k: int,
-                 metric: str = "l2") -> np.ndarray:
-    """Exact kNN in f32 on the card: matrix-form shortlist of 64, then an
-    exact re-rank ((x - q)² for l2; 1 - x̂·q̂ for cosine)."""
-    if metric == "cosine":
-        x = x / torch.linalg.norm(x, dim=1, keepdim=True)
-        q = q / torch.linalg.norm(q, dim=1, keepdim=True)
-        cand = torch.topk(q @ x.T, 64, dim=1).indices
-        exact = 1.0 - torch.sum(x[cand] * q[:, None, :], dim=-1)
-    else:
-        xn = torch.sum(x * x, dim=1)
-        qn = torch.sum(q * q, dim=1)
-        d = qn[:, None] - 2.0 * (q @ x.T) + xn[None, :]
-        cand = torch.topk(d, 64, dim=1, largest=False).indices
-        del d
-        exact = torch.sum((x[cand] - q[:, None, :]) ** 2, dim=-1)
-    order = torch.argsort(exact, dim=1, stable=True)[:, :k]
-    return torch.gather(cand, 1, order).cpu().numpy()
 
 
 def cold_ids(gen, b: int, k: int, n: int) -> torch.Tensor:
@@ -681,7 +714,7 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
     batch_launches = read_launches()
     require_launches("A query", batch_launches, ["gather_dists"])
     check_result(labels, dists, N_QUERIES, 10)
-    rec = recall_of(labels, ground_truth(x, q, 10))
+    rec = recall_of(labels, device_ground_truth(x, q, 10, "l2"))
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -707,10 +740,17 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
     x_all = torch.cat([x, torch.from_numpy(extra).to(DEV)])
     lab3, d3 = loaded.knn_query(queries, **knobs)
     check_result(lab3, d3, N_QUERIES, 10)
-    rec_all = recall_of(lab3, ground_truth(x_all, q, 10))
+    rec_all = recall_of(lab3, device_ground_truth(x_all, q, 10, "l2"))
     if rec_all < A_FLOOR:
         raise AssertionError(f"phase A recall@10 after the add {rec_all:.4f}"
                              f" < {A_FLOOR}")
+    stats = search_stats(loaded.graph, queries[:256], k=10, ef=A_EF,
+                         metric="l2")
+    say(f"[A search_stats] {json.dumps(stats)}")
+    if stats["beam_iterations"] <= 0 or stats["distance_evals"] != (
+            stats["batch"] * stats["beam_iterations"] * stats["expand"]
+            * loaded.graph.adj0.shape[1]):
+        raise AssertionError(f"phase A: search_stats counters {stats}")
     out = dict(build_vps=A_N / build_s, build_s=build_s, recall=rec,
                qps=qps, recall_after_add=rec_all, add_busy=add_busy,
                launches_build=build_launches, launches_per_batch=batch_launches,
@@ -733,98 +773,78 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
 
 # ------------------------------------------- phase B: streaming ingest
 def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
-    """laion-streaming shapes at 96k rows: warm add, 10 ingest steps, one
-    timed 4096-query batch per setting after each (the first step's batch
-    excluded from the sustained QPS, as the harness does)."""
-    data = clustered(B_N, B_DIM, n_clusters=64, seed=7)
-    queries = queries_like(data, N_QUERIES, seed=8)
-    qb = np.tile(queries, (-(-B_QB // N_QUERIES), 1))[:B_QB]
-    x = torch.from_numpy(data).to(DEV)
-    gt = ground_truth(x, torch.from_numpy(queries).to(DEV), 10, "cosine")
-    del x
-    index = Index("cosine", B_DIM, device=DEV.type)
-    index.init_index(max_elements=B_N, M=M, ef_construction=B_EFC,
-                     round_size=B_RS)
+    """laion-streaming shapes at 96k rows through the port's
+    `run_streaming_config`: warm add, 10 ingest steps, one timed 4096-query
+    batch per setting after each (the first step's batch excluded from the
+    sustained QPS).  Every add and every query batch is metered for its
+    kernel launches."""
     n_warm = B_N // 2
-    step = (B_N - n_warm) // B_STEPS
     reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index.add_items(data[:n_warm])
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm_launches = read_launches()
+    with metering(build_mod.BuildState, "add") as adds, \
+            metering(harness_mod, "knn_search") as searches:
+        out = harness_mod.run_streaming_config(
+            "laion-streaming", n=B_N, dim=B_DIM, metric="cosine",
+            n_queries=N_QUERIES, M=M, ef_construction=B_EFC, round_size=B_RS,
+            settings=B_SETTINGS, n_steps=B_STEPS, qps_batch=B_QB,
+            verbose=False, device=DEV.type)
+    say(f"[B] run_streaming_config: {json.dumps(out)}")
+    if len(adds) != 1 + B_STEPS \
+            or len(searches) != (B_STEPS + 1) * len(B_SETTINGS):
+        raise AssertionError(f"phase B: {len(adds)} adds, {len(searches)} "
+                             f"searches")
+    warm_launches = sum_launches(adds[:1])
+    ingest_launches = sum_launches(adds[1:])
     require_launches("B warm", warm_launches, ["gather_dists"])
-    if index._state._packed_build or warm_launches["packed_score"]:
-        raise AssertionError("phase B: the packed build switched on")
-    ins_s = 0.0
-    ingest_launches = {"gather_dists": 0, "packed_score": 0}
-    q_s = {s: 0.0 for s in B_SETTINGS}
-    batch_launches = {}
-    for i in range(B_STEPS):
-        lo = n_warm + i * step
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        index.add_items(data[lo:lo + step])
-        torch.cuda.synchronize()
-        ins_s += time.perf_counter() - t0
-        for kern, c in read_launches().items():
-            ingest_launches[kern] += c
-        index._seed_index()  # the harness builds the seeds outside the timer
-        for ef, mi in B_SETTINGS:
-            reset_launches()
-            t0 = time.perf_counter()
-            index.knn_query(qb, k=10, ef=ef, max_iters=mi, engine="classic")
-            dt = time.perf_counter() - t0
-            batch_launches[(ef, mi)] = read_launches()
-            require_launches(f"B query {ef}/{mi}", batch_launches[(ef, mi)],
-                             ["gather_dists"])
-            if i > 0:
-                q_s[(ef, mi)] += dt
     require_launches("B ingest", ingest_launches, ["gather_dists"])
-    if index._state._packed_build or ingest_launches["packed_score"]:
-        raise AssertionError(f"phase B: the packed build ran during ingest "
-                             f"{ingest_launches}")
-    sweep = []
-    for ef, mi in B_SETTINGS:
-        labels, dists = index.knn_query(queries, k=10, ef=ef, max_iters=mi,
-                                        engine="classic")
-        check_result(labels, dists, N_QUERIES, 10)
-        sweep.append(dict(ef=ef, max_iters=mi, recall=recall_of(labels, gt),
-                          sustained_qps=B_QB * (B_STEPS - 1) / q_s[(ef, mi)],
-                          launches_per_batch=batch_launches[(ef, mi)]))
-    ef, mi = B_SETTINGS[-1]
+    if warm_launches["packed_score"] or ingest_launches["packed_score"]:
+        raise AssertionError(f"phase B: the packed build ran: warm "
+                             f"{warm_launches}, ingest {ingest_launches}")
+    # the last step's timed batches, one per setting
+    timed = searches[-2 * len(B_SETTINGS):-len(B_SETTINGS)]
+    for row, call in zip(out["sweep"], timed):
+        row["launches_per_batch"] = call["launches"]
+        require_launches(f"B query {row['ef']}/{row['max_iters']}",
+                         call["launches"], ["gather_dists"])
+    if out["n"] != B_N or out["backend"] != DEV.type or not all(
+            0.0 <= r["recall"] <= 1.0 and r["sustained_qps_during_ingest"] > 0
+            for r in out["sweep"]):
+        raise AssertionError(f"phase B: malformed result {out}")
+    # the end-state graph and queries, from the harness's last search
+    (graph, queries), knobs = searches[-1]["args"], searches[-1]["kwargs"]
+    del adds, searches
+    qb = queries.repeat(-(-B_QB // queries.shape[0]), 1)[:B_QB].contiguous()
     with recording(search_mod, "dists_to_ids") as calls:
-        index.knn_query(qb, k=10, ef=ef, max_iters=mi, engine="classic")
+        search_mod.knn_search(graph, qb, **knobs)
     # the beam's 10th candidate block
     query_call = [c for c in calls
                   if tuple(c[5].shape) == (B_QB, COMPACT_K)][9]
     del calls
-    query_busy = busy_share(lambda: index.knn_query(
-        qb, k=10, ef=ef, max_iters=mi, engine="classic"), "B_query")
-    out = dict(warm_vps=n_warm / warm_s, ingest_vps=(B_N - n_warm) / ins_s,
+    query_busy = busy_share(lambda: search_mod.knn_search(graph, qb, **knobs),
+                            "B_query")
+    res = dict(warm_vps=out["warm_build_vps"], ingest_vps=out["ingest_vps"],
                launches_warm=warm_launches, launches_ingest=ingest_launches,
-               sweep=sweep, query_busy=query_busy)
+               sweep=out["sweep"], query_busy=query_busy)
     say(f"[B laion-streaming cut to {B_N}x{B_DIM} cosine] warm "
-        f"{n_warm / warm_s:.0f} vectors/s; ingest {(B_N - n_warm) / ins_s:.0f}"
-        f" vectors/s over {B_STEPS} steps of {step}; " + "; ".join(
+        f"{out['warm_build_vps']} vectors/s; ingest {out['ingest_vps']}"
+        f" vectors/s over {B_STEPS} steps of {(B_N - n_warm) // B_STEPS}; "
+        + "; ".join(
             f"ef={r['ef']} mi={r['max_iters']}: sustained QPS "
-            f"{r['sustained_qps']:.0f}, end recall@10 {r['recall']:.4f}"
-            for r in sweep) + f"; {fmt_share(query_busy)} in a "
-        f"{B_QB}-query batch at {ef}/{mi} (profiled); K2 launches warm "
+            f"{r['sustained_qps_during_ingest']}, end recall@10 "
+            f"{r['recall']:.4f}" for r in out["sweep"])
+        + f"; {fmt_share(query_busy)} in a {B_QB}-query batch at "
+        f"{knobs['ef']}/{knobs['max_iters']} (profiled); K2 launches warm "
         f"{warm_launches['gather_dists']}, ingest "
         f"{ingest_launches['gather_dists']} [{smi}]")
-    if sweep[-1]["recall"] < B_FLOOR:
-        raise AssertionError(f"phase B recall@10 {sweep[-1]['recall']:.4f} "
-                             f"< {B_FLOOR} at {B_SETTINGS[-1]}")
+    if out["sweep"][-1]["recall"] < B_FLOOR:
+        raise AssertionError(f"phase B recall@10 {out['sweep'][-1]['recall']}"
+                             f" < {B_FLOOR} at {B_SETTINGS[-1]}")
     vec, sc, qq, ids, metric = k2_args(query_call)
     rows = [k2_case(f"B query cold ({B_QB}, {COMPACT_K}) cosine", vec, sc,
                     qq, cold_ids(gen, B_QB, COMPACT_K, B_N), metric, flush,
                     time_it=True),
             k2_case(f"B query real ({B_QB}, {COMPACT_K}) cosine", vec, sc,
                     qq, ids, metric, flush, time_it=True)]
-    return out, rows
+    return res, rows
 
 
 # ------------------------------------- phase C: add after a bulk build
@@ -869,8 +889,8 @@ def phase_c(index, data, queries, smi: str, flush, gen) -> tuple[dict, list]:
     x_all = torch.cat([torch.from_numpy(data), torch.from_numpy(extra)]).to(DEV)
     labels, dists = index.knn_query(queries, **QUERY_KNOBS)
     check_result(labels, dists, N_QUERIES, QUERY_KNOBS["k"])
-    rec = recall_of(labels, ground_truth(
-        x_all, torch.from_numpy(queries).to(DEV), QUERY_KNOBS["k"]))
+    rec = recall_of(labels, device_ground_truth(
+        x_all, queries, QUERY_KNOBS["k"], "l2"))
     del x_all
     out = dict(ingest_vps=C_ADD / add_s, add_s=add_s, launches_add=launches,
                recall=rec)
@@ -890,6 +910,155 @@ def phase_c(index, data, queries, smi: str, flush, gen) -> tuple[dict, list]:
             k1_case(f"C build beam real B={b} E={e}", args, flush,
                     time_it=True)]
     return out, rows
+
+
+# ------------------------------- phase D: the harness and the flat indexes
+def check_int8_scan(gen) -> None:
+    """The int8 scan's integer dot against an int64 reference (an f64
+    product is exact here), at the widths of deep10m (96), the 768-d
+    configs and one past the single-product limit: equal."""
+    for b, n, d in ((8192, 65_536, 96), (1024, 16_384, 768),
+                    (256, 4_096, 1100)):
+        qi = torch.from_numpy(gen.integers(-127, 128, size=(b, d),
+                                           dtype=np.int8)).to(DEV)
+        rows = torch.from_numpy(gen.integers(-127, 128, size=(n, d),
+                                             dtype=np.int8)).to(DEV)
+        got = flat_mod.int8_dot(qi, rows).to(torch.int64)
+        ref = torch.matmul(qi.double(), rows.double().T).to(torch.int64)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"int8 scan [{b}, {n}] D={d}: "
+                                 f"{int((got != ref).sum())} sums differ")
+        say(f"[D int8 scan] [{b}, {n}] D={d}: equal to the int64 reference")
+
+
+def harness_case(tag: str, name: str, kwargs: dict, smi: str, flush, gen,
+                 kernels) -> tuple[dict, list]:
+    """One `run_config` on the card: its result printed as JSON, every
+    engine's best recall held to D_FLOOR, `kernels` required to have
+    launched, and K2 held and timed at the flat engine's rerank block (the
+    arguments of the flat sweep's last batch)."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with metering(flat_mod, "gather_dists") as reranks:
+        out = harness_mod.run_config(name, qps_batch=QPS_BATCH, verbose=False,
+                                     device=DEV.type, **kwargs)
+    took = time.perf_counter() - t0
+    launches = read_launches()
+    say(f"[{tag}] run_config: {json.dumps(out)}")
+    say(f"[{tag} {name}] {took:.1f} s; launches {json.dumps(launches)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{smi}]")
+    require_launches(tag, launches, kernels)
+    if set(out["engines"]) != set(kwargs["engines"]) \
+            or out["backend"] != DEV.type:
+        raise AssertionError(f"{tag}: malformed result")
+    for engine, res in out["engines"].items():
+        if res["best"]["recall"] < D_FLOOR or res["best"]["qps"] <= 0:
+            raise AssertionError(f"{tag}: {engine} best {res['best']} under "
+                                 f"recall@10 {D_FLOOR}")
+    vec, sc, q, ids, metric = reranks[-1]["args"]
+    del reranks
+    shape = f"({ids.shape[0]}, {ids.shape[1]})"
+    label = (f"{shape} {str(vec.dtype).replace('torch.', '')} "
+             f"D={vec.shape[1]} {metric}")
+    n = kwargs["n"]
+    rows = [k2_case(f"{tag} flat rerank cold {label}", vec, sc, q,
+                    cold_ids(gen, *ids.shape, n), metric, flush,
+                    time_it=True),
+            k2_case(f"{tag} flat rerank real {label}", vec, sc, q, ids,
+                    metric, flush, time_it=True)]
+    return dict(result=out, launches=launches, seconds=took), rows
+
+
+def l1_pair(rows, q):
+    return abs(rows - q[..., None, :]).sum(-1)
+
+
+def phase_d3(x: torch.Tensor, data: np.ndarray, queries: np.ndarray,
+             gt: np.ndarray, smi: str) -> dict:
+    """BFIndex over the main path's rows (`data`, on the card as `x`)
+    against the ground truth; FlatIndex save/load; Index and FlatIndex
+    under a registered metric."""
+    k = gt.shape[1]
+    bf = BFIndex("l2", DIM, device=DEV.type)
+    bf.init_index(max_elements=N)
+    bf.add_items(data)
+    reset_launches()
+    labels, dists = bf.knn_query(queries, k=k)
+    require_launches("D3 BFIndex", read_launches(), ["gather_dists"])
+    check_result(labels, dists, N_QUERIES, k)
+    differ = int((labels != gt).any(axis=1).sum())
+    if differ:
+        # a row may differ only where f32 cannot tell two neighbours apart
+        q = torch.from_numpy(queries).to(DEV)
+        exact = torch.sum((x[torch.from_numpy(gt).to(DEV).long()]
+                           - q[:, None, :]) ** 2, dim=-1)
+        exact = torch.sort(exact, dim=1).values.cpu().numpy()
+        np.testing.assert_allclose(dists, exact, rtol=1e-6, atol=1e-6)
+    if recall_of(labels, gt) < 0.9999:
+        raise AssertionError("D3: BFIndex differs from the ground truth")
+    del bf
+    say(f"[D3 BFIndex] {N}x{DIM} l2, {N_QUERIES} queries: ids equal to the "
+        f"exact ground truth in {N_QUERIES - differ} rows ({differ} rows "
+        f"differ at f32 ties, their distances equal to 1e-6)")
+
+    fi = FlatIndex("l2", DIM, device=DEV.type)
+    fi.init_index(max_elements=D3_FLAT_N, scan_dtype="int8",
+                  rerank_dtype="bf16")
+    fi.add_items(data[:D3_FLAT_N])
+    fi.mark_deleted(5)
+    want = fi.knn_query(queries, k=k)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flat.idx")
+        fi.save_index(path)
+        loaded = FlatIndex("l2", DIM, device=DEV.type)
+        loaded.load_index(path, max_elements=D3_FLAT_N + 5000)
+    got = loaded.knn_query(queries, k=k)
+    if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1],
+                                                              got[1])):
+        raise AssertionError("D3: FlatIndex results differ after save/load")
+    say(f"[D3 FlatIndex] {D3_FLAT_N}x{DIM} int8 scan, bf16 rerank rows: "
+        f"save, load with resize to {D3_FLAT_N + 5000}: identical results")
+    del fi, loaded
+
+    if not metrics_mod.is_metric("l1"):
+        metrics_mod.register_metric("l1", l1_pair)
+    rows = clustered(D3_N, D3_DIM, n_clusters=32, seed=5)
+    qs = queries_like(rows, N_QUERIES, seed=6)
+    gt1 = device_ground_truth(torch.from_numpy(rows).to(DEV), qs, k, "l1")
+    reset_launches()
+    calls = gather_dists.registry_calls
+    index = Index("l1", D3_DIM, device=DEV.type)
+    index.init_index(max_elements=D3_N, M=M, ef_construction=64)
+    t0 = time.perf_counter()
+    index.add_items(rows)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    labels, dists = index.knn_query(qs, k=k, ef=96)
+    check_result(labels, dists, N_QUERIES, k)
+    rec_hnsw = recall_of(labels, gt1)
+    flat = FlatIndex("l1", D3_DIM, device=DEV.type)
+    flat.init_index(max_elements=D3_N)
+    flat.add_items(rows)
+    labels, dists = flat.knn_query(qs, k=k)
+    check_result(labels, dists, N_QUERIES, k)
+    rec_flat = recall_of(labels, gt1)
+    calls = gather_dists.registry_calls - calls
+    launches = read_launches()
+    say(f"[D3 registered metric l1] {D3_N}x{D3_DIM}: Index build "
+        f"{D3_N / build_s:.0f} vectors/s, recall@10 {rec_hnsw:.4f} at ef=96;"
+        f" FlatIndex (chunked exact scan) recall@10 {rec_flat:.4f}; "
+        f"{calls} pair_dist calls on the card, kernel launches "
+        f"{json.dumps(launches)} (a registered metric launches none) [{smi}]")
+    if min(rec_hnsw, rec_flat) < D_FLOOR:
+        raise AssertionError(f"D3: l1 recall {rec_hnsw} / {rec_flat} < "
+                             f"{D_FLOOR}")
+    if calls <= 0 or any(launches.values()):
+        raise AssertionError(f"D3: l1 took {calls} registry calls and "
+                             f"launches {launches}")
+    return dict(l1_build_vps=D3_N / build_s, l1_recall=rec_hnsw,
+                l1_flat_recall=rec_flat, bf_rows_differ=differ)
 
 
 def headline(rows: list[dict], case: str) -> dict:
@@ -966,7 +1135,7 @@ def main(argv: list[str]) -> int:
         (x[torch.from_numpy(labels).to(dev)] - q[:, None, :]) ** 2, dim=-1)
     np.testing.assert_allclose(dists, exact.cpu().numpy(), rtol=1e-5,
                                atol=1e-5)
-    gt = ground_truth(x, q, k)
+    gt = device_ground_truth(x, q, k, "l2")
     rec = recall_of(labels, gt)
     say(f"[main] recall@{k} {rec:.4f} over {N_QUERIES} queries "
         f"(floor {RECALL_FLOOR}); knobs {json.dumps(QUERY_KNOBS)}")
@@ -997,7 +1166,18 @@ def main(argv: list[str]) -> int:
     knn_call = capture_knn_batch(x)
     k2_rows += check_k2_main(x, qps_queries, seed_call, rerank_call, knn_call,
                              flush, gen)
-    del knn_call, seed_call, rerank_call, x
+    del knn_call, seed_call, rerank_call
+    # where one flat-scan batch spends its device time (matmul, top-k, the
+    # elementwise passes): 8192 queries over the 1M rows, bf16 scan
+    flat = bulk_mod.flat_from_rows(x, "l2")
+    qq = torch.from_numpy(qps_queries).to(dev)
+    flat_mod.flat_search(flat, qq, 10, "l2")
+    flat_busy = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
+                           "flat_batch")
+    say(f"[main flat batch] {QPS_BATCH} queries over {N}x{DIM} bf16 scan, "
+        f"profiled: {fmt_share(flat_busy)}; device time by kernel "
+        f"[name, ms, count]: {json.dumps(flat_busy['top'])} [{smi}]")
+    del flat, qq
 
     for kern, n in launches.items():
         if n <= 0:
@@ -1008,6 +1188,25 @@ def main(argv: list[str]) -> int:
     phase_c_out, rows = phase_c(index, data, queries, smi, flush, gen)
     k1_rows += rows
     say(f"[C] phase took {time.perf_counter() - t0:.1f} s")
+    del index
+
+    # ---- phase D: the benchmark harness and the flat indexes
+    t0 = time.perf_counter()
+    check_int8_scan(gen)
+    phase_d3(x, data, queries, gt, smi)
+    del x, data
+    say(f"[D3] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d1_out, rows = harness_case("D1", "glove1m", D1, smi, flush, gen,
+                                ["gather_dists", "packed_score"])
+    k2_rows += rows
+    say(f"[D1] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d2_out, rows = harness_case("D2", "deep10m", D2, smi, flush, gen,
+                                ["gather_dists"])
+    k2_rows += rows
+    say(f"[D2] phase took {time.perf_counter() - t0:.1f} s (flat engine "
+        f"only: the HNSW half of deep10m is not run)")
 
     by_phase = {
         "main_build": build_launches,
@@ -1020,6 +1219,8 @@ def main(argv: list[str]) -> int:
         **{f"B_query_batch_ef{r['ef']}_mi{r['max_iters']}":
            r["launches_per_batch"] for r in phase_b_out["sweep"]},
         "C_add": phase_c_out["launches_add"],
+        "D1_glove1m": d1_out["launches"],
+        "D2_deep10m_flat": d2_out["launches"],
     }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
     record = {"kernels": [

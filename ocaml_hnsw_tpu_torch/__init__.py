@@ -8,8 +8,8 @@ never jax, and nothing of the JAX package.
 """
 
 from ocaml_hnsw_tpu_torch.config import HnswConfig
-from ocaml_hnsw_tpu_torch.api import Index
+from ocaml_hnsw_tpu_torch.api import BFIndex, FlatIndex, Index
 
 __version__ = "0.1.0"
 
-__all__ = ["HnswConfig", "Index", "__version__"]
+__all__ = ["BFIndex", "FlatIndex", "HnswConfig", "Index", "__version__"]

@@ -1,5 +1,6 @@
-"""Public API of the torch port: `Index`, the hnswlib-shaped surface of the JAX
-package's `ocaml_hnsw_tpu/api.py::Index` on torch tensors on one device.
+"""Public API of the torch port: `Index`, `FlatIndex` and `BFIndex`, the
+hnswlib-shaped surfaces of the JAX package's `ocaml_hnsw_tpu/api.py` on torch
+tensors on one device.
 
 A first `add_items` that fills most of an empty index builds the graph in
 bulk (`models/bulk.py`); every other add goes through the incremental
@@ -11,8 +12,13 @@ PACKED_BUDGET_BYTES serves from the packed inline-int8 engine
 package's `.npz` format (`io.py`).  The defaults of `knn_query` are the JAX
 package's, not a benchmarked operating point.
 
-`Index(space, dim, device="cuda")` keeps every tensor on `device` and never
-falls back to another: with no CUDA device, "cuda" raises.
+`FlatIndex` is the flat scan (`models/flat.py`: bf16 or int8 scan, exact
+rerank), `BFIndex` the same surface with an exact f32 scan; both read and
+write the JAX package's flat `.npz` files.
+
+`Index(space, dim, device="cuda")` (and the flat indexes alike) keeps every
+tensor on `device` and never falls back to another: with no CUDA device,
+"cuda" raises.
 """
 
 from __future__ import annotations
@@ -365,3 +371,210 @@ class Index:
         self._label_to_id = {int(l): i for i, l in enumerate(labels)}
         if max_elements is not None and max_elements > saved_max:
             self.resize_index(max_elements)  # hnswlib resize-on-load
+
+
+class FlatIndex:
+    """Flat-scan index (models/flat.py): one bf16 or int8 scan over the whole
+    dataset, exact top-`rerank_k`, exact rerank.  No graph is built; every
+    query reads every row."""
+
+    exact = False
+
+    def __init__(self, space: str, dim: int, *, device="cuda"):
+        _check_space(space)
+        self.space = space
+        self.dim = dim
+        self.device = _resolve_device(device)
+        self._flat = None
+        self._labels = np.zeros((0,), dtype=np.int64)
+        self._label_to_id: dict[int, int] = {}
+        self.max_elements = 0
+        self.rerank_k = 32
+
+    def init_index(self, max_elements: int, rerank_k: int = 32,
+                   scan_dtype: str = "bf16", rerank_dtype: str = "f32",
+                   **_ignored) -> None:
+        """scan_dtype: "bf16" or "int8" (quantized distances, half the scan
+        memory); rerank_dtype: "f32" or "bf16" (high-dimensional datasets
+        where memory is short)."""
+        from ocaml_hnsw_tpu_torch.models.flat import empty_flat
+
+        self.max_elements = max_elements
+        self.rerank_k = rerank_k
+        self._flat = empty_flat(self.dim, max_elements, scan_dtype=scan_dtype,
+                                rerank_dtype=rerank_dtype, device=self.device)
+
+    def _require_init(self):
+        if self._flat is None:
+            raise RuntimeError("call init_index (or load_index) first")
+        return self._flat
+
+    def add_items(self, data, ids=None, **_ignored) -> None:
+        from ocaml_hnsw_tpu_torch.models.flat import flat_add
+        from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+
+        flat = self._require_init()
+        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+        if data.shape[1] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {data.shape[1]}")
+        if get_metric(self.space).normalize_add:
+            nrm = np.linalg.norm(data, axis=1, keepdims=True)
+            data = data / np.where(nrm == 0, 1.0, nrm)
+        n_new = data.shape[0]
+        n_cur = int(flat.n)
+        if n_cur + n_new > self.max_elements:
+            raise RuntimeError("index is full; grow max_elements")
+        if ids is None:
+            labels = np.arange(n_cur, n_cur + n_new, dtype=np.int64)
+        else:
+            labels = np.asarray(ids, dtype=np.int64).reshape(-1)
+            if labels.shape[0] != n_new:
+                raise ValueError("ids length must match data rows")
+        clash = [int(l) for l in labels if int(l) in self._label_to_id]
+        if clash:
+            raise ValueError(f"duplicate labels not supported: {clash[:5]}")
+        chunk = 65536  # bounds the f32 copy on the device
+        for done in range(0, n_new, chunk):
+            rows = torch.from_numpy(data[done:done + chunk]).to(self.device)
+            flat_add(flat, rows, n_cur + done, rows.shape[0])
+        for off, lab in enumerate(labels):
+            self._label_to_id[int(lab)] = n_cur + off
+        self._labels = np.concatenate([self._labels, labels])
+
+    def resize_index(self, new_max_elements: int) -> None:
+        """Grow capacity (tensors re-padded; norms pad to +inf so empty
+        slots never score)."""
+        from ocaml_hnsw_tpu_torch.models.flat import FlatTensors
+        from ocaml_hnsw_tpu_torch.utils import round_up
+
+        flat = self._require_init()
+        if new_max_elements < int(flat.n):
+            raise ValueError("cannot shrink below current element count")
+        self.max_elements = new_max_elements
+        grow = round_up(max(new_max_elements, 4096), 4096) - flat.n_cap
+        if grow <= 0:
+            return
+
+        def pad(a, fill):
+            out = torch.full((a.shape[0] + grow, *a.shape[1:]), fill,
+                             dtype=a.dtype, device=a.device)
+            out[:a.shape[0]] = a
+            return out
+
+        self._flat = FlatTensors(
+            scan=pad(flat.scan, 0), scales=pad(flat.scales, 1.0),
+            rerank=pad(flat.rerank, 0), norms=pad(flat.norms, float("inf")),
+            n=flat.n, deleted=pad(flat.deleted, False))
+
+    def knn_query(self, data, k: int = 1, rerank_k: int | None = None,
+                  **_ignored):
+        """Returns (labels i64[Q, k], dists f32[Q, k]); -1 label on padding."""
+        from ocaml_hnsw_tpu_torch.models.flat import flat_search
+
+        flat = self._require_init()
+        if int(flat.n) == 0:
+            raise RuntimeError("index is empty")
+        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+        q_n = data.shape[0]
+        padded = np.zeros((_pad_batch(q_n), self.dim), np.float32)
+        padded[:q_n] = data
+        ids, dists = flat_search(
+            flat, torch.from_numpy(padded).to(self.device), k=k,
+            metric=self.space,
+            rerank_k=max(k, rerank_k if rerank_k is not None else self.rerank_k),
+            exact=self.exact,
+        )
+        ids = ids.cpu().numpy()[:q_n]
+        dists = dists.cpu().numpy()[:q_n]
+        labels = np.where(ids >= 0, self._labels[np.maximum(ids, 0)], -1)
+        return labels.astype(np.int64), dists
+
+    def mark_deleted(self, label: int) -> None:
+        self._require_init().deleted[self._label_to_id[int(label)]] = True
+
+    delete_vector = mark_deleted  # hnswlib BFIndex spelling
+
+    def unmark_deleted(self, label: int) -> None:
+        self._require_init().deleted[self._label_to_id[int(label)]] = False
+
+    def get_current_count(self) -> int:
+        return 0 if self._flat is None else int(self._flat.n)
+
+    def get_ids_list(self) -> list[int]:
+        return self._labels.tolist()
+
+    def save_index(self, path) -> None:
+        """The JAX package's flat file: numpy has no bfloat16, so bf16 arrays
+        are widened to f32 beside a dtype tag spelled as numpy spells it
+        ("bfloat16", "int8", "float32")."""
+        flat = self._require_init()
+
+        def host(t):
+            t = t.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+        def tag(t):
+            return np.frombuffer(
+                str(t.dtype).removeprefix("torch.").encode(), np.uint8)
+
+        arrays = dict(
+            scan=host(flat.scan),
+            scan_dtype=tag(flat.scan),
+            rerank_dtype=tag(flat.rerank),
+            scales=host(flat.scales),
+            rerank=host(flat.rerank),
+            norms=host(flat.norms),
+            n=host(flat.n),
+            deleted=host(flat.deleted),
+            labels=self._labels,
+            max_elements=np.int64(self.max_elements),
+            space=np.frombuffer(self.space.encode(), dtype=np.uint8),
+        )
+        # an open handle keeps save("x.bin") / load("x.bin") symmetric
+        # (np.savez appends ".npz" to bare string paths)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+
+    def load_index(self, path, max_elements: int | None = None) -> None:
+        """Load a file of either package (files from before the dtype tags
+        and the separate scan load too); max_elements above the saved
+        capacity resizes on load."""
+        from ocaml_hnsw_tpu_torch.models.flat import FlatTensors
+
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
+
+        def put(a, dtype=None):
+            return torch.from_numpy(np.array(a, copy=True)).to(
+                self.device, dtype)
+
+        with np.load(path) as z:
+            space = bytes(z["space"]).decode()
+            if space != self.space:
+                raise ValueError(f"index file is {space}, this is {self.space}")
+            sd = bytes(z["scan_dtype"]).decode() if "scan_dtype" in z \
+                else "float32"
+            rd = bytes(z["rerank_dtype"]).decode() if "rerank_dtype" in z \
+                else "float32"
+            rerank = put(z["rerank"], dtypes[rd])
+            self._flat = FlatTensors(
+                scan=put(z["scan"], dtypes[sd]) if "scan" in z else rerank,
+                scales=put(z["scales"]) if "scales" in z
+                else torch.ones((rerank.shape[0],), device=self.device),
+                rerank=rerank,
+                norms=put(z["norms"]),
+                n=put(z["n"]),
+                deleted=put(z["deleted"]),
+            )
+            self._labels = np.asarray(z["labels"])
+            self._label_to_id = {int(l): i for i, l in enumerate(self._labels)}
+            self.max_elements = int(z["max_elements"])
+        if max_elements is not None and max_elements > self.max_elements:
+            self.resize_index(max_elements)  # hnswlib resize-on-load
+
+
+class BFIndex(FlatIndex):
+    """Exact brute-force index (hnswlib BFIndex parity): full-f32 scan and
+    exact top-k.  Same surface as FlatIndex."""
+
+    exact = True

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ocaml_hnsw_tpu_torch.config import HnswConfig
-from ocaml_hnsw_tpu_torch.utils import round_up
+from ocaml_hnsw_tpu_torch.utils import pad_to, round_up
 
 
 @dataclasses.dataclass
@@ -159,6 +159,63 @@ def empty_graph(config: HnswConfig, max_elements: int,
         n=full((), 0, torch.int32),
         deleted=full((n_cap,), False, torch.bool),
         l_max_static=config.derived_max_level(max_elements),
+    )
+
+
+def from_oracle(oracle, max_elements: int | None = None,
+                device: torch.device | str = "cuda") -> GraphTensors:
+    """GraphTensors of a NumPy oracle index (any object with the
+    OracleHNSW fields: config, element_count, vectors, levels, adj, deleted,
+    entry, max_level), the same tensors as the JAX package's `from_oracle`."""
+    from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
+    from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+
+    cfg = oracle.config
+    n = oracle.element_count
+    n_cap = capacity(max_elements or n)
+    l_max = cfg.derived_max_level(max_elements or max(n, 2))
+    vectors_f = np.zeros((n_cap, cfg.dim), np.float32)
+    if n:
+        vectors_f[:n] = np.stack(oracle.vectors)
+    vectors, scales, norms = quantize_rows(torch.from_numpy(vectors_f),
+                                           cfg.storage)
+    if not get_metric(cfg.metric).needs_norms:
+        norms = torch.zeros((n_cap,), dtype=torch.float32)
+
+    adj0 = np.full((n_cap, cfg.M_max0), -1, np.int32)
+    t_cap = arena_capacity(max_elements or max(n, 2), cfg.M)
+    adj_up = np.full((t_cap, cfg.M), -1, np.int32)
+    up_base = np.full((n_cap,), -1, np.int32)
+    levels = np.full((n_cap,), -1, np.int32)
+    up_n = 0
+    for i in range(n):
+        lvl = min(oracle.levels[i], l_max)
+        levels[i] = lvl
+        if lvl >= 1:  # the arena block, in insertion order
+            up_base[i] = up_n
+            up_n += lvl
+        for lc, nbrs in enumerate(oracle.adj[i]):
+            if lc == 0:
+                adj0[i] = pad_to(np.asarray(nbrs, np.int32), cfg.M_max0, -1)
+            elif lc <= l_max:
+                adj_up[up_base[i] + lc - 1] = pad_to(
+                    np.asarray(nbrs, np.int32), cfg.M, -1)
+    if up_n >= t_cap:
+        raise RuntimeError(f"arena overflow converting oracle: {up_n} rows "
+                           f"> capacity {t_cap}")
+    deleted = np.zeros((n_cap,), np.bool_)
+    for e in oracle.deleted:
+        deleted[e] = True
+    max_level = min(max(oracle.max_level, 0), l_max) if n else -1
+    arrays = dict(
+        adj0=adj0, adj_up=adj_up, up_base=up_base, levels=levels,
+        deleted=deleted, up_n=np.int32(up_n), entry=np.int32(oracle.entry),
+        max_level=np.int32(max_level), n=np.int32(n))
+    return GraphTensors(
+        vectors=vectors.to(device), scales=scales.to(device),
+        norms=norms.to(device),
+        **{f: _to_torch(a, device) for f, a in arrays.items()},
+        l_max_static=l_max,
     )
 
 

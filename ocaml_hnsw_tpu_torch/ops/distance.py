@@ -18,6 +18,19 @@ from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import gather_dists
 INF = float("inf")
 
 
+def require_full_f32_matmul(device) -> None:
+    """Raise unless float32 matrix products on `device` run in full f32: an
+    exact scan and the ground truth need true f32 products, and TF32 rounds
+    the operands to 10 mantissa bits.  The CPU always does."""
+    if torch.device(device).type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "float32 matmuls are set to run in TF32; set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
 def query_norms(q: torch.Tensor, metric: str) -> torch.Tensor:
     """Per-query ||q||² for norm-consuming metrics (l2); zeros otherwise. [B]"""
     if get_metric(metric).needs_norms:

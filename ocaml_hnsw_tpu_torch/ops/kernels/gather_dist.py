@@ -89,13 +89,22 @@ def gather_dists(vectors, scales, q, ids, metric: str):
     """f32[B, K] distances d(q_b, vectors[ids[b, k]]).
 
     vectors [N, D] f32/bf16/int8, scales f32[N], q f32[B, D], ids i32[B, K].
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise: there is no fallback)."""
+
+    Which metric takes which route:
+      * l2, ip, cosine (KERNEL_METRICS): CPU tensors take the plain version;
+        CUDA tensors launch the kernel or raise (there is no fallback).
+        `gather_dists.launches` counts these launches and nothing else.
+      * any other registered metric: gather, dequantize and the metric's own
+        `pair_dist`, on whatever device the tensors are on.  A user's Python
+        callable cannot be compiled into csrc/gather_dist.cu, and this is
+        what the JAX package does for such metrics
+        (`ops/distance.py::dists_to_ids`).  `gather_dists.registry_calls`
+        counts these calls."""
+    if metric not in KERNEL_METRICS:
+        gather_dists.registry_calls += 1
+        return gather_dists_plain(vectors, scales, q, ids, metric)
     if not vectors.is_cuda:
         return gather_dists_plain(vectors, scales, q, ids, metric)
-    if metric not in KERNEL_METRICS:
-        raise NotImplementedError(
-            f"gather_dists: no CUDA kernel for registered metric {metric!r}")
     b, k = ids.shape
     n, dim = vectors.shape
     if vectors.dtype not in _DTYPES:
@@ -131,3 +140,4 @@ def gather_dists(vectors, scales, q, ids, metric: str):
 
 
 gather_dists.launches = 0  # kernel launches (not counting plain-version calls)
+gather_dists.registry_calls = 0  # calls under a metric outside KERNEL_METRICS

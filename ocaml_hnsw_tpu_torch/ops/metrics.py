@@ -20,7 +20,8 @@ A metric supplies:
       when matmul_score consumes x_norms, as l2's does).
 
 The CUDA gather-distance kernel covers the built-in metrics only; a
-registered metric runs its `pair_dist` on CPU tensors.
+registered metric runs its `pair_dist` on the gathered rows, on the device
+the tensors are on (`ops/kernels/gather_dist.py::gather_dists`).
 """
 
 from __future__ import annotations

@@ -20,8 +20,11 @@ from ocaml_hnsw_tpu.config import HnswConfig as JaxConfig
 from ocaml_hnsw_tpu.models import bulk as jbulk
 from ocaml_hnsw_tpu.models.build import sample_levels as jax_sample_levels
 
+from ocaml_hnsw_tpu_torch.bench.datasets import queries_like
 from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models import bulk as tbulk
+from ocaml_hnsw_tpu_torch.models.graph import GraphTensors, graph_from_numpy
+from ocaml_hnsw_tpu_torch.models.search import knn_search
 
 # One torch thread: under pytest-xdist every worker's default pool (one
 # thread per core) spins against the other workers and XLA; the port's
@@ -202,3 +205,28 @@ class TestOwnKnnTable:
                               batch=BATCH)
         assert torch.equal(g.adj0, g2.adj0) and torch.equal(g.adj_up,
                                                              g2.adj_up)
+
+    def test_own_build_recall_matches_jax_build(self, data, jax_graph):
+        """The port's build on its own kNN table serves queries as well as
+        the graph the JAX package built from the same rows: recall@10 of
+        one search (the port's classic engine, ef=64) over either graph,
+        against exact neighbours, within 0.01."""
+        own = tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M,
+                                                ef_construction=80),
+                               knn_k=KNN_K, batch=BATCH)
+        ref = graph_from_numpy(
+            {f: getattr(jax_graph, f) for f in GraphTensors._fields},
+            jax_graph.l_max_static, "cpu")
+        q = queries_like(data, 300, seed=5)
+        d = ((q * q).sum(1)[:, None] - 2.0 * q @ data.T
+             + (data * data).sum(1)[None, :])
+        gt = np.argsort(d, axis=1)[:, :10]
+
+        def recall(graph):
+            ids = knn_search(graph, torch.from_numpy(q), k=10, ef=64,
+                             metric="l2")[0].numpy()
+            return np.mean([len(set(a) & set(b)) / 10
+                            for a, b in zip(ids.tolist(), gt.tolist())])
+
+        r_own, r_ref = recall(own), recall(ref)
+        assert r_own >= 0.9 and abs(r_own - r_ref) <= 0.01, (r_own, r_ref)

@@ -96,6 +96,36 @@ class TestAgainstDistsToIds:
         finally:
             metrics.unregister_metric("l1_gather_test")
 
+    def test_registered_metric_equals_jax_and_is_counted_apart(self):
+        """A metric outside KERNEL_METRICS goes through its own pair_dist
+        (on any device), equals the JAX package's dists_to_ids under the
+        same registered metric, and is counted apart from kernel launches."""
+        from ocaml_hnsw_tpu.ops import metrics as jmetrics
+        from ocaml_hnsw_tpu_torch.ops import metrics
+
+        def l1(r, q):
+            return abs(r - q[..., None, :]).sum(-1)
+
+        for reg in (jmetrics, metrics):
+            if not reg.is_metric("l1"):
+                reg.register_metric("l1", l1)
+        vecs, ids, q = _inputs(4, 300, 40, 12, 24)
+        for storage in ("f32", "int8"):
+            jrows, jscales, jnorms = jax_quantize_rows(jnp.asarray(vecs),
+                                                       storage)
+            ref = np.asarray(jax_dists_to_ids(
+                jrows, jscales, jnorms, jnp.asarray(q), jnp.zeros(12),
+                jnp.asarray(ids), "l1"))
+            rows, scales, norms = quantize_rows(torch.from_numpy(vecs),
+                                                storage)
+            before = gather_dists.launches, gather_dists.registry_calls
+            out = dists_to_ids(rows, scales, norms, torch.from_numpy(q),
+                               torch.zeros(12), torch.from_numpy(ids), "l1")
+            assert (gather_dists.launches, gather_dists.registry_calls) == (
+                before[0], before[1] + 1)
+            np.testing.assert_array_equal(np.isinf(out.numpy()), ids < 0)
+            np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
 
 class TestLaunchPlan:
     """How csrc/gather_dist.cu splits a call into warp tasks and rows."""

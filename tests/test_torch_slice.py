@@ -2,8 +2,9 @@
 `Index(..., device="cpu")` through init_index → add_items (bulk build) →
 knn_query (seed scan + packed engine) on 4000 x 24 clustered data, with the
 bulk, seed and packed thresholds lowered on both packages so this size
-takes the path a 1M index takes; and a small index through incremental
-adds, the classic engine and save/load/resize.
+takes the path a 1M index takes (the JAX Index answers from the same graph,
+loaded from the port's checkpoint file); a small index through incremental
+adds, the classic engine and save/load/resize; and a registered metric.
 
 Recall@10 against the brute-force oracle must be within 0.01 of the JAX
 Index's (the packages differ legitimately in the kNN table's top-k, the
@@ -50,14 +51,21 @@ def low_thresholds():
 
 
 @pytest.fixture(scope="module")
-def indexes(low_thresholds):
+def indexes(low_thresholds, tmp_path_factory):
+    """The port builds in bulk; the JAX Index loads that graph from the
+    port's checkpoint file and packs and seeds it itself, so the two query
+    paths are compared on one graph.  (A JAX bulk build here compiled for
+    half a minute; the bulk constructor is held to JAX's pass by pass, and
+    its graph's recall to that of JAX's own build, in
+    tests/test_torch_bulk.py.)"""
     data = clustered(N, DIM, n_clusters=32, seed=1)
     t = Index("l2", DIM, device="cpu")
     t.init_index(**INIT)
     t.add_items(data)
+    path = tmp_path_factory.mktemp("slice") / "bulk.idx"
+    t.save_index(path)
     j = JaxIndex("l2", DIM)
-    j.init_index(**INIT)
-    j.add_items(data)
+    j.load_index(path)
     return data, t, j
 
 
@@ -191,6 +199,43 @@ class TestNotYetPorted:
             Index("hamming", 8, device="cpu")
 
 
+def test_registered_metric_index_matches_jax(tmp_path):
+    """A metric registered from outside (L1, no matmul form) through both
+    packages' Index: the port builds, both answer (greedy-descent entry,
+    `pair_dist` on the gathered rows).  The returned ids are equal and are
+    the exact L1 neighbours; distances to 1e-5."""
+    from ocaml_hnsw_tpu.ops import metrics as jmetrics
+    from ocaml_hnsw_tpu_torch.ops import metrics as tmetrics
+
+    def l1(rows, q):
+        return abs(rows - q[..., None, :]).sum(-1)
+
+    for reg in (jmetrics, tmetrics):
+        if not reg.is_metric("l1"):
+            reg.register_metric("l1", l1)
+    rng = np.random.RandomState(3)
+    data = rng.randn(300, 8).astype(np.float32)
+    q = rng.randn(16, 8).astype(np.float32)
+    init = dict(max_elements=300, M=8, ef_construction=48, random_seed=5,
+                round_size=64)
+    t = Index("l1", 8, device="cpu")
+    t.init_index(**init)
+    t.add_items(data)
+    # the JAX Index serves the graph the port built (carried over by the
+    # checkpoint file): a JAX build under a new metric would compile its
+    # insert round for half a minute, and builds are held to JAX's in
+    # tests/test_torch_incremental.py
+    t.save_index(tmp_path / "l1.idx")
+    j = JaxIndex("l1", 8)
+    j.load_index(tmp_path / "l1.idx")
+    t_lab, t_d = t.knn_query(q, k=5, ef=64)
+    j_lab, j_d = j.knn_query(q, k=5, ef=64)
+    np.testing.assert_array_equal(t_lab, j_lab)
+    np.testing.assert_allclose(t_d, j_d, rtol=1e-5)
+    gt, _ = bruteforce_knn(data, q, 5, metric="l1")
+    np.testing.assert_array_equal(t_lab, gt)
+
+
 def test_import_pulls_in_no_jax():
     """Importing the port (every module of it) loads neither jax nor the
     JAX package."""
@@ -212,5 +257,6 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
     loaded = set(out.stdout.splitlines()[1].split())
     for m in ("io", "api", "models.build", "models.search", "models.packed",
-              "ops.bitset"):
+              "models.flat", "ops.bitset", "utils.profiling",
+              "bench.datasets", "bench.harness", "bench.__main__"):
         assert f"ocaml_hnsw_tpu_torch.{m}" in loaded, m
