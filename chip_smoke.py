@@ -22,7 +22,11 @@ their results against exact ground truth computed on the card:
      half is left out: at the incremental build's rate 10M rows take over an
      hour); D3 `BFIndex` over the main path's 1M rows against the exact
      ground truth, a `FlatIndex` save/load, and `Index` and `FlatIndex`
-     under a registered L1 metric.
+     under a registered L1 metric;
+  E. the sharded index (`parallel/sharded.py::ShardedIndex`), one shard per
+     card or two sharing a single card: SIFT-shaped rows cut to 200k, an
+     add of 60k and classic queries, an add of the other 140k and packed
+     queries (recall, QPS), save -> load, a tombstone, `get_items`.
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # build + kernel checks on
@@ -47,10 +51,11 @@ operations over the peak rate for their type if that is longer.
 The kernels are also held and timed at the other paths' shapes, on inputs
 captured there: K2 on a phase-A build round's candidate block, on a
 phase-B query batch's and on the flat engines' rerank blocks of D1 and D2,
-K1 on a phase-C construction beam step.  Ground truth everywhere is the
-harness's `device_ground_truth` (exact f32 on the card).  Launch
-counters are zeroed before each phase and read after it; a phase whose path
-runs a kernel fails if that kernel did not launch.
+on phase E's level-0 build block and per-shard rerank, K1 on a phase-C
+construction beam step and on a phase-E shard's query beam step.  Ground
+truth everywhere is the harness's `device_ground_truth` (exact f32 on the
+card).  Launch counters are zeroed before each phase and read after it; a
+phase whose path runs a kernel fails if that kernel did not launch.
 
 Exits non-zero, printing no result, when no CUDA device is available.  The
 last line of stdout is {"ok": true, "device": {...}}; the line before it is
@@ -61,6 +66,7 @@ from the plain version, its times and bounds.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -93,6 +99,8 @@ from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
 )
 from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+from ocaml_hnsw_tpu_torch.parallel import ShardedIndex
+from ocaml_hnsw_tpu_torch.parallel.sharded import make_mesh
 from ocaml_hnsw_tpu_torch.utils.profiling import search_stats
 
 N, DIM, M, EFC = 1_000_000, 128, 16, 200
@@ -120,6 +128,14 @@ D2 = dict(n=10_000_000, dim=96, metric="l2", engines=("flat",),
           scan_dtype="int8", rerank_dtype="bf16")
 D_FLOOR = 0.95
 D3_N, D3_DIM, D3_FLAT_N = 20_000, 32, 100_000
+#: phase E: the sharded index, SIFT-shaped rows cut from 1M to 200k (the
+#: sharded build is incremental); the first add stays under
+#: ShardedIndex.PACKED_THRESHOLD (classic queries), the second crosses it
+#: (packed queries at the JAX package's sharded S=1 knobs)
+E_N, E_FIRST, E_RS = 200_000, 60_000, 2048
+E_CLASSIC = dict(k=10, ef=64)
+E_KNOBS = dict(k=10, ef=64, max_iters=29, expand=2, rerank_k=32)
+E_FLOOR = 0.90
 #: the classic engine's candidate compaction at M=16 (knn_query "auto")
 COMPACT_K = 96
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
@@ -266,13 +282,15 @@ def k2_case(label: str, vec, scales, q, ids, metric: str, flush=None,
 
 
 @contextlib.contextmanager
-def recording(module, name: str):
-    """Keep the arguments of every call to `module.name` (a pass-through)."""
-    calls = []
+def recording(module, name: str, want=None, keep: int | None = None):
+    """Keep the arguments of every call to `module.name` (a pass-through),
+    or of the calls whose arguments `want` accepts, the last `keep` only."""
+    calls = collections.deque(maxlen=keep)
     real = getattr(module, name)
 
     def rec(*args, **kwargs):
-        calls.append(args)
+        if want is None or want(args):
+            calls.append(args)
         return real(*args, **kwargs)
 
     setattr(module, name, rec)
@@ -1061,6 +1079,162 @@ def phase_d3(x: torch.Tensor, data: np.ndarray, queries: np.ndarray,
                 l1_flat_recall=rec_flat, bf_rows_differ=differ)
 
 
+# ------------------------------------------- phase E: the sharded index
+def sync_all() -> None:
+    """Wait for every card (shards may sit on several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
+    """`ShardedIndex` through its public API: one shard per card, or two
+    sharing the card on a one-card machine.  An add of E_FIRST rows and
+    classic queries, an add of the rest and packed queries (recall, QPS by
+    the `measure_qps` protocol), save -> load into a fresh index, a
+    tombstone, `get_items`; then K1 and K2 held and timed on shard 0's
+    captured calls."""
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(cards if cards >= 2 else 2)
+    s = len(mesh)
+    data = clustered(E_N, DIM, n_clusters=400, seed=13)
+    queries = queries_like(data, N_QUERIES, seed=14)
+    qps_queries = queries_like(data, QPS_BATCH, seed=15)
+    x = torch.from_numpy(data).to(DEV)
+    q = torch.from_numpy(queries).to(DEV)
+    index = ShardedIndex("l2", DIM, mesh=mesh)
+    index.init_index(max_elements=E_N, M=M, ef_construction=EFC,
+                     round_size=E_RS)
+    g0 = index._graphs[0]
+    k2_block = (E_RS, 4 * g0.adj0.shape[1])  # level-0 build beam, expand 4
+
+    def add(rows, tag: str, **rec):
+        reset_launches()
+        sync_all()
+        t0 = time.perf_counter()
+        with recording(search_mod, "dists_to_ids", **rec) as calls:
+            index.add_items(rows)
+        sync_all()
+        took = time.perf_counter() - t0
+        launches = read_launches()
+        require_launches(tag, launches, ["gather_dists"])
+        if launches["packed_score"]:
+            raise AssertionError(f"{tag}: the sharded build launched K1")
+        return rows.shape[0] / took, launches, calls
+
+    # the last 64 level-0 beam blocks of shard 0 in the first add
+    vps1, add1, calls = add(
+        data[:E_FIRST], "E first add", keep=64,
+        want=lambda a: a[0] is g0.vectors and tuple(a[5].shape) == k2_block)
+    build_call = calls[0]
+    del calls
+    if index._packed_shards() is not None:
+        raise AssertionError("phase E: packed engine below the threshold")
+    reset_launches()
+    labels, dists = index.knn_query(queries, **E_CLASSIC)
+    classic = read_launches()
+    require_launches("E classic query", classic, ["gather_dists"])
+    if classic["packed_score"]:
+        raise AssertionError("phase E: the classic query launched K1")
+    check_result(labels, dists, N_QUERIES, 10)
+    rec_c = recall_of(labels, device_ground_truth(x[:E_FIRST], q, 10, "l2"))
+
+    vps2, add2, _ = add(data[E_FIRST:], "E second add", keep=0)
+    if index._packed_shards() is None:
+        raise AssertionError("phase E: packed engine above the threshold")
+    labels, dists = index.knn_query(queries, **E_KNOBS)
+    check_result(labels, dists, N_QUERIES, 10)
+    exact = torch.sum((x[torch.from_numpy(labels).to(DEV)] - q[:, None, :])
+                      ** 2, dim=-1)
+    np.testing.assert_allclose(dists, exact.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    rec_p = recall_of(labels, device_ground_truth(x, q, 10, "l2"))
+    if min(rec_c, rec_p) < E_FLOOR:
+        raise AssertionError(f"phase E recall@10 classic {rec_c:.4f}, "
+                             f"packed {rec_p:.4f} < {E_FLOOR}")
+
+    # QPS, the measure_qps protocol: 2 warm-up batches, 10 timed between
+    # two synchronizes
+    for _ in range(2):
+        index.knn_query(qps_queries, **E_KNOBS)
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        index.knn_query(qps_queries, **E_KNOBS)
+    sync_all()
+    qps = 10 * QPS_BATCH / (time.perf_counter() - t0)
+    reset_launches()
+    with recording(packed_mod, "packed_score",
+                   want=lambda a: a[2] is index._packed_cache[0].pay) \
+            as k1_calls, \
+            recording(packed_mod, "dists_to_ids",
+                      want=lambda a: a[0] is g0.vectors) as rerank:
+        index.knn_query(qps_queries, **E_KNOBS)
+    batch = read_launches()
+    require_launches("E packed query", batch,
+                     ["gather_dists", "packed_score"])
+    query_busy = busy_share(
+        lambda: index.knn_query(qps_queries, **E_KNOBS), "E_query")
+
+    # lifecycle: save -> load, tombstone, get_items
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded.idx")
+        index.save_index(path)
+        loaded = ShardedIndex("l2", DIM, mesh=mesh)
+        loaded.load_index(path)
+    lab2, d2 = loaded.knn_query(queries, **E_KNOBS)
+    del loaded
+    if not (np.array_equal(labels, lab2) and np.array_equal(dists, d2)):
+        raise AssertionError("phase E: results differ after save/load")
+    victim = int(labels[0, 0])
+    index.mark_deleted(victim)
+    lab3, _ = index.knn_query(queries, **E_KNOBS)
+    index.unmark_deleted(victim)
+    lab4, _ = index.knn_query(queries, **E_KNOBS)
+    if (lab3 == victim).any() or not np.array_equal(lab4, labels):
+        raise AssertionError("phase E: tombstone not honoured or not lifted")
+    some = labels[:64, 0]
+    if not np.array_equal(index.get_items(some), data[some]):
+        raise AssertionError("phase E: get_items differs from the rows")
+
+    out = dict(shards=s, cards=cards, build_vps_first=vps1,
+               build_vps_second=vps2, recall_classic=rec_c,
+               recall_packed=rec_p, qps=qps, query_busy=query_busy,
+               launches_first_add=add1, launches_classic_batch=classic,
+               launches_second_add=add2, launches_packed_batch=batch)
+    say(f"[E sharded] {s} shards on {cards} card(s), clustered {E_N}x{DIM} "
+        f"l2 (cut from 1M), M={M} efC={EFC} round_size={E_RS}: first add "
+        f"{E_FIRST} at {vps1:.0f} vectors/s, classic recall@10 {rec_c:.4f} "
+        f"at ef={E_CLASSIC['ef']}; second add {E_N - E_FIRST} at "
+        f"{vps2:.0f} vectors/s; packed recall@10 {rec_p:.4f} (floor "
+        f"{E_FLOOR}), QPS {qps:.0f} in {QPS_BATCH}-query batches at "
+        f"{json.dumps(E_KNOBS)}; {fmt_share(query_busy)} in one batch "
+        f"(profiled); save/load identical, tombstone honoured, get_items "
+        f"equal; launches first add {json.dumps(add1)}, classic batch "
+        f"{json.dumps(classic)}, second add {json.dumps(add2)}, packed "
+        f"batch {json.dumps(batch)} [{smi}]")
+
+    # kernels at the sharded path's shapes, on shard 0's own inputs
+    pk = index._packed_cache[0]
+    args = k1_calls[CAPTURE_ITER]  # shard 0's 10th beam iteration
+    b, e = args[0].shape
+    nodes, _, _ = k1_inputs(int(index._shard_n[0]), b, e, pk.d_pad, gen)
+    k1_rows = [k1_case(f"E shard beam cold B={b} E={e}",
+                       (nodes,) + tuple(args[1:]), flush, time_it=True),
+               k1_case(f"E shard beam real B={b} E={e}", args, flush,
+                       time_it=True)]
+    vec, sc, qq, ids, metric = k2_args(build_call)
+    n0 = int(index._shard_n[0])
+    k2_rows = [k2_case(f"E build round cold {k2_block}", vec, sc, qq,
+                       cold_ids(gen, *k2_block, n0), metric, flush,
+                       time_it=True),
+               k2_case(f"E build round real {k2_block}", vec, sc, qq, ids,
+                       metric, flush, time_it=True)]
+    vec, sc, qq, ids, metric = k2_args(rerank[-1])
+    k2_rows.append(k2_case(f"E shard rerank real {tuple(ids.shape)}", vec,
+                           sc, qq, ids, metric, flush, time_it=True))
+    return out, k1_rows, k2_rows
+
+
 def headline(rows: list[dict], case: str) -> dict:
     (row,) = [r for r in rows if r["case"] == case]
     return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1208,6 +1382,13 @@ def main(argv: list[str]) -> int:
     say(f"[D2] phase took {time.perf_counter() - t0:.1f} s (flat engine "
         f"only: the HNSW half of deep10m is not run)")
 
+    # ---- phase E: the sharded index
+    t0 = time.perf_counter()
+    e_out, rows1, rows2 = phase_e(smi, flush, gen)
+    k1_rows += rows1
+    k2_rows += rows2
+    say(f"[E] phase took {time.perf_counter() - t0:.1f} s")
+
     by_phase = {
         "main_build": build_launches,
         "main_query_batch": batch_launches,
@@ -1221,6 +1402,10 @@ def main(argv: list[str]) -> int:
         "C_add": phase_c_out["launches_add"],
         "D1_glove1m": d1_out["launches"],
         "D2_deep10m_flat": d2_out["launches"],
+        "E_first_add": e_out["launches_first_add"],
+        "E_classic_query_batch": e_out["launches_classic_batch"],
+        "E_second_add": e_out["launches_second_add"],
+        "E_packed_query_batch": e_out["launches_packed_batch"],
     }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
     record = {"kernels": [

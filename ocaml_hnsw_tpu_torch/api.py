@@ -28,7 +28,7 @@ import torch
 
 from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models.build import BuildState
-from ocaml_hnsw_tpu_torch.models.graph import GraphTensors
+from ocaml_hnsw_tpu_torch.models.graph import GraphTensors, grow_graph
 from ocaml_hnsw_tpu_torch import io as index_io
 
 
@@ -164,9 +164,8 @@ class Index:
 
     @torch.no_grad()
     def resize_index(self, new_max_elements: int) -> None:
-        """Grow capacity (graph tensors re-padded; the arena's sink row moves
-        to the new last row — the old one is all -1 and becomes an
-        allocatable row).  The level stream continues."""
+        """Grow capacity (graph tensors re-padded by `grow_graph`).  The
+        level stream continues."""
         st = self._require_init()
         if new_max_elements < st.host_n:
             raise ValueError("cannot shrink below current element count")
@@ -180,28 +179,7 @@ class Index:
         if t_grow < 0:
             raise ValueError("resize would shrink the upper arena")
         new_state.graph = None  # free the empty graph before padding
-
-        def pad_rows(a, rows, fill):
-            out = torch.full((a.shape[0] + rows, *a.shape[1:]), fill,
-                             dtype=a.dtype, device=a.device)
-            out[:a.shape[0]] = a
-            return out
-
-        graph = GraphTensors(
-            vectors=pad_rows(old.vectors, grow, 0),
-            scales=pad_rows(old.scales, grow, 1.0),
-            norms=pad_rows(old.norms, grow, 0.0),
-            adj0=pad_rows(old.adj0, grow, -1),
-            adj_up=pad_rows(old.adj_up, t_grow, -1),
-            up_base=pad_rows(old.up_base, grow, -1),
-            up_n=old.up_n.clone(),
-            levels=pad_rows(old.levels, grow, -1),
-            entry=old.entry.clone(),
-            max_level=old.max_level.clone(),
-            n=old.n.clone(),
-            deleted=pad_rows(old.deleted, grow, False),
-            l_max_static=max(new_state.l_max, old.l_max),
-        )
+        graph = grow_graph(old, grow, t_grow, max(new_state.l_max, old.l_max))
         new_state.rng = st.rng  # continue the level-sampling stream
         new_state.l_max = graph.l_max
         new_state.adopt_graph(graph)

@@ -262,7 +262,8 @@ def bulk_build(
 ) -> GraphTensors:
     """Construct a full GraphTensors from the complete dataset (module
     docstring).  `data`: [n, dim] numpy array or tensor; `device` defaults
-    to the tensor's own.  Deterministic for a fixed (data, config).
+    to the tensor's own, and to "cuda" for a host array (raising when there
+    is no CUDA device).  Deterministic for a fixed (data, config).
     `levels`: optional pre-sampled per-node levels (BuildState passes them
     from its own stream).  Stage times go to this module's logger at INFO
     (timed with a device sync only when that level is enabled)."""
@@ -272,11 +273,13 @@ def bulk_build(
     timed = log.isEnabledFor(logging.INFO)
     t_all = t0 = time.perf_counter()
 
+    from ocaml_hnsw_tpu_torch.api import _resolve_device
+
     if isinstance(data, torch.Tensor):
-        dev = torch.device(device) if device is not None else data.device
+        dev = _resolve_device(device if device is not None else data.device)
         data = data.to(dev)
     else:
-        dev = torch.device(device if device is not None else "cpu")
+        dev = _resolve_device(device if device is not None else "cuda")
         data = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
 
     def stage(msg):

@@ -162,6 +162,35 @@ def empty_graph(config: HnswConfig, max_elements: int,
     )
 
 
+def grow_graph(g: GraphTensors, rows: int, arena_rows: int,
+               l_max_static: int) -> GraphTensors:
+    """`g` with `rows` more empty node rows and `arena_rows` more empty
+    upper-arena rows (resize_index).  The arena's sink row moves to the new
+    last row; the old one is all -1 and becomes an allocatable row."""
+
+    def pad(a, n, fill):
+        out = torch.full((a.shape[0] + n, *a.shape[1:]), fill,
+                         dtype=a.dtype, device=a.device)
+        out[:a.shape[0]] = a
+        return out
+
+    return GraphTensors(
+        vectors=pad(g.vectors, rows, 0),
+        scales=pad(g.scales, rows, 1.0),
+        norms=pad(g.norms, rows, 0.0),
+        adj0=pad(g.adj0, rows, -1),
+        adj_up=pad(g.adj_up, arena_rows, -1),
+        up_base=pad(g.up_base, rows, -1),
+        up_n=g.up_n.clone(),
+        levels=pad(g.levels, rows, -1),
+        entry=g.entry.clone(),
+        max_level=g.max_level.clone(),
+        n=g.n.clone(),
+        deleted=pad(g.deleted, rows, False),
+        l_max_static=l_max_static,
+    )
+
+
 def from_oracle(oracle, max_elements: int | None = None,
                 device: torch.device | str = "cuda") -> GraphTensors:
     """GraphTensors of a NumPy oracle index (any object with the

@@ -226,6 +226,24 @@ def build_seed_index(graph: GraphTensors, metric: str,
                                       device=dev))
 
 
+def seed_index_from_bank(graph: GraphTensors, bank, n_live,
+                         metric: str) -> SeedIndex:
+    """SeedIndex view of a build-time seed bank (i32[U_cap] ids, -1 past
+    the live count `n_live`), on the graph's device: the sharded engine's
+    entry, where each shard keeps its own bank.  Dead slots get a +inf
+    score bias."""
+    safe = bank.clamp_min(0)
+    vecs = gather_dequant(graph.vectors, graph.scales, safe[None, :])[0]
+    live = torch.arange(bank.shape[0], device=bank.device) < n_live
+    if get_metric(metric).needs_norms:
+        norms = torch.sum(vecs * vecs, dim=1)
+    else:
+        norms = torch.zeros((bank.shape[0],), dtype=torch.float32,
+                            device=bank.device)
+    return SeedIndex(ids=safe, vecs=vecs.to(torch.bfloat16), norms=norms,
+                     bias=torch.where(live, 0.0, INF))
+
+
 def seed_entries(graph: GraphTensors, seeds: SeedIndex, q, qn, e: int,
                  metric: str):
     """Top-E upper-layer nodes per query: one scan + top-E, then exact

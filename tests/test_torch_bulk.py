@@ -137,7 +137,7 @@ def port_on_jax_knn(data, jax_build):
     try:
         return tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M,
                                                  ef_construction=80),
-                                knn_k=KNN_K, batch=BATCH)
+                                knn_k=KNN_K, batch=BATCH, device="cpu")
     finally:
         mp.undo()
 
@@ -192,7 +192,7 @@ class TestOwnKnnTable:
 
     def test_own_build_structure(self, data):
         g = tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M), knn_k=KNN_K,
-                             batch=BATCH)
+                             batch=BATCH, device="cpu")
         adj0 = g.adj0.numpy()
         assert adj0.shape == (4096, 2 * M)
         for i in range(0, N, 97):
@@ -202,7 +202,7 @@ class TestOwnKnnTable:
         levels = g.levels.numpy()[:N]
         assert levels[int(g.entry)] == int(g.max_level)
         g2 = tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M), knn_k=KNN_K,
-                              batch=BATCH)
+                              batch=BATCH, device="cpu")
         assert torch.equal(g.adj0, g2.adj0) and torch.equal(g.adj_up,
                                                              g2.adj_up)
 
@@ -213,7 +213,7 @@ class TestOwnKnnTable:
         against exact neighbours, within 0.01."""
         own = tbulk.bulk_build(data, HnswConfig(dim=DIM, M=M,
                                                 ef_construction=80),
-                               knn_k=KNN_K, batch=BATCH)
+                               knn_k=KNN_K, batch=BATCH, device="cpu")
         ref = graph_from_numpy(
             {f: getattr(jax_graph, f) for f in GraphTensors._fields},
             jax_graph.l_max_static, "cpu")
@@ -230,3 +230,13 @@ class TestOwnKnnTable:
 
         r_own, r_ref = recall(own), recall(ref)
         assert r_own >= 0.9 and abs(r_own - r_ref) <= 0.01, (r_own, r_ref)
+
+
+def test_host_data_builds_on_the_card_by_default():
+    """A host array with no device given goes to "cuda", which raises when
+    there is no CUDA device: nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    data = clustered(300, 8, n_clusters=4, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbulk.bulk_build(data, HnswConfig(dim=8, M=4), knn_k=8)

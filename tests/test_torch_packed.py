@@ -59,7 +59,7 @@ def port_to_jax(g):
 def clustered_graphs():
     data = clustered(4000, 24, n_clusters=32, seed=1)
     tg = bulk_build(data, HnswConfig(dim=24, M=12, ef_construction=80),
-                    knn_k=24, batch=1024)
+                    knn_k=24, batch=1024, device="cpu")
     return data, port_to_jax(tg), tg
 
 
@@ -73,7 +73,8 @@ def grid_graphs():
     data = data.astype(np.float32)
     q = np.clip(data[rng.randint(0, 2000, size=64)]
                 + rng.randint(-2, 3, size=(64, 16)), -15, 15)
-    tg = bulk_build(data, HnswConfig(dim=16, M=8), knn_k=16, batch=512)
+    tg = bulk_build(data, HnswConfig(dim=16, M=8), knn_k=16, batch=512,
+                    device="cpu")
     return data, q.astype(np.float32), tg, port_to_jax(tg)
 
 
@@ -99,7 +100,7 @@ class TestPackGraph:
         data = clustered(1000, 24, n_clusters=8, seed=2)
         tg = bulk_build(data, HnswConfig(dim=24, M=6, metric=metric,
                                          storage=storage),
-                        knn_k=12, batch=512)
+                        knn_k=12, batch=512, device="cpu")
         jp = jpacked.pack_graph(port_to_jax(tg), metric)
         tp = tpacked.pack_graph(tg, metric)
         np.testing.assert_array_equal(
@@ -187,7 +188,7 @@ class TestSearchParity:
         the port built and carried into the JAX package."""
         data = clustered(3000, 24, n_clusters=24, seed=3)
         tg = bulk_build(data, HnswConfig(dim=24, M=12, metric="cosine"),
-                        knn_k=24, batch=1024)
+                        knn_k=24, batch=1024, device="cpu")
         jg = port_to_jax(tg)
         q = queries_like(data, 256, seed=7)
         gt, _ = bruteforce_knn(data, q, 10, metric="cosine")

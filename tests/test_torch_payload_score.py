@@ -45,7 +45,8 @@ def packs():
     """The JAX package's pack of a graph (built by the port, which is
     faster here; tests/test_torch_bulk.py holds its build to JAX's)."""
     data = clustered(600, 20, n_clusters=8, seed=4)
-    tg = bulk_build(data, HnswConfig(dim=20, M=6), knn_k=12, batch=256)
+    tg = bulk_build(data, HnswConfig(dim=20, M=6), knn_k=12, batch=256,
+                    device="cpu")
     g = JaxGraph(**{f: jnp.asarray(a) for f, a in graph_to_numpy(tg).items()},
                  l_max_static=tg.l_max_static)
     jp = jax_pack_graph(g, "l2")

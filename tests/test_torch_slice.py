@@ -258,5 +258,6 @@ def test_import_pulls_in_no_jax():
     loaded = set(out.stdout.splitlines()[1].split())
     for m in ("io", "api", "models.build", "models.search", "models.packed",
               "models.flat", "ops.bitset", "utils.profiling",
-              "bench.datasets", "bench.harness", "bench.__main__"):
+              "bench.datasets", "bench.harness", "bench.__main__",
+              "parallel", "parallel.sharded"):
         assert f"ocaml_hnsw_tpu_torch.{m}" in loaded, m
