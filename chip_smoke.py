@@ -23,6 +23,12 @@ their results against exact ground truth computed on the card:
      hour); D3 `BFIndex` over the main path's 1M rows against the exact
      ground truth, a `FlatIndex` save/load, and `Index` and `FlatIndex`
      under a registered L1 metric;
+  F. the packed engine's options on the main path's graph, before C grows
+     it (`models/packed.py`, `models/refine.py`): F1 `pack_graph(fused=
+     True)` answers as the plain pack does, F2 a `deg_limit` ladder (and
+     `max_chunk=4096`), F3 `bits=4` on the main data and, as its guard, on
+     a grid-aligned 100k set, F4 the refined half-degree graph (`refine`'s
+     time, its K2 launches, recall and QPS);
   E. the sharded index (`parallel/sharded.py::ShardedIndex`), one shard per
      card or two sharing a single card: SIFT-shaped rows cut to 200k, an
      add of 60k and classic queries, an add of the other 140k and packed
@@ -31,6 +37,8 @@ their results against exact ground truth computed on the card:
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # build + kernel checks on
                                           # synthetic data, no index
+    python3 chip_smoke.py --phase-f       # kernel checks, the main path's
+                                          # build and queries, phase F, stop
     python3 chip_smoke.py --profile-dir DIR  # also write the profiled
                                              # windows' op tables to DIR
 
@@ -52,7 +60,9 @@ The kernels are also held and timed at the other paths' shapes, on inputs
 captured there: K2 on a phase-A build round's candidate block, on a
 phase-B query batch's and on the flat engines' rerank blocks of D1 and D2,
 on phase E's level-0 build block and per-shard rerank, K1 on a phase-C
-construction beam step and on a phase-E shard's query beam step.  Ground
+construction beam step, on a phase-E shard's query beam step and at
+phase F's variants (`slots` on a deg_limit step, `bits=4`, the refined
+deg-16 payload; K2 on refine's candidate block).  Ground
 truth everywhere is the harness's `device_ground_truth` (exact f32 on the
 card).  Launch counters are zeroed before each phase and read after it; a
 phase whose path runs a kernel fails if that kernel did not launch.
@@ -95,7 +105,7 @@ from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
     gather_dists, gather_dists_plain,
 )
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
-    packed_score, packed_score_plain,
+    nibble_unpack, packed_score, packed_score_plain,
 )
 from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
@@ -136,6 +146,18 @@ E_N, E_FIRST, E_RS = 200_000, 60_000, 2048
 E_CLASSIC = dict(k=10, ef=64)
 E_KNOBS = dict(k=10, ef=64, max_iters=29, expand=2, rerank_k=32)
 E_FLOOR = 0.90
+#: phase F: the packed engine's options on main's 1M graph; the deg_limit
+#: ladder (effective 16, 16, 32 slots at W=2048) with one rung's max_iters
+#: doubled; the bits=4 guard's grid-aligned set (components in [-7, 7]); the
+#: refined half-degree graph and its query rung at max_iters x 1.25
+F_DEG_LIMITS = (8, 16, 24)
+F_RAISED = dict(deg_limit=16, max_iters=2 * QUERY_KNOBS["max_iters"])
+F_GRID_N, F_GRID_SEED, F_INT4_SLACK = 100_000, 17, 0.02
+F_REFINE_DEG = 16
+F_REFINE_MI = (QUERY_KNOBS["max_iters"] * 5) // 4
+#: paired QPS runs of an option against its full-byte pack: pairs, and the
+#: measure_qps warm-up and timed batches of each run
+F_PAIRS, F_PAIR_WARMUP, F_PAIR_REPS = 10, 1, 2
 #: the classic engine's candidate compaction at M=16 (knn_query "auto")
 COMPACT_K = 96
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
@@ -187,13 +209,42 @@ def bound(nbytes: int, ops: int, peak: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_cost(nodes, deg: int, d_pad: int) -> tuple[int, int]:
-    """(bytes, int8 ops) of one packed_score call on these nodes."""
+def k1_cost(nodes, slots: int, d_pad: int, bits: int = 8
+            ) -> tuple[int, int, float]:
+    """(bytes, ops, peak rate) of one packed_score call on these nodes:
+    each distinct node's first `slots` slab rows of d_pad bytes and their
+    ids and norms, each query row and node id, each output.  bits=8: int8
+    multiply-adds; bits=4: f32 multiply-adds (two components per byte)."""
     live = nodes[nodes >= 0]
     b, e = nodes.shape
-    nbytes = (int(torch.unique(live).numel()) * (deg * d_pad + 8 * deg)
-              + b * (d_pad + 4) + b * e * 4 + b * e * deg * 8)
-    return nbytes, 2 * int(live.numel()) * deg * d_pad
+    q_bytes = d_pad if bits == 8 else 4 * d_pad
+    nbytes = (int(torch.unique(live).numel()) * (slots * d_pad + 8 * slots)
+              + b * (q_bytes + 4) + b * e * 4 + b * e * slots * 8)
+    comps = d_pad if bits == 8 else 2 * d_pad
+    return (nbytes, 2 * int(live.numel()) * slots * comps,
+            INT8_OPS_PER_S if bits == 8 else F32_FLOPS_PER_S)
+
+
+def k1_int4_bound(args, d, d_ref):
+    """|d - d_ref| allowed between K1 and its plain version at bits=4: both
+    sum exact f32 products (nibble x bf16), in different orders, so the dot
+    differs by at most 2·n·2⁻²⁴·Σ|y·q| (n = 2·d_pad <= 2¹⁰ terms), and the
+    epilogue's roundings by a few ulps of its terms:
+    2⁻¹⁴·s²·Σ|y·q| + 2⁻²⁰·(s²·‖y‖² + ‖q‖² + |d|) per candidate."""
+    nodes, meta, pay, q16, qn, scale = args[:6]
+    slots = args[7] or pay.shape[1]
+    deg = meta.shape[1] // 2
+    safe = nodes.clamp_min(0).long()
+    lo, hi = nibble_unpack(pay[:, :slots][safe])
+    qf = q16.float().abs()[:, None, None, :]
+    absdot = (lo.float().abs() * qf[..., 0::2]
+              + hi.float().abs() * qf[..., 1::2]).sum(-1)
+    s2 = float(scale) ** 2
+    nrm = meta[safe][:, :, deg:deg + slots].float()
+    b = nodes.shape[0]
+    return (2.0 ** -14 * s2 * absdot.reshape(b, -1)
+            + 2.0 ** -20 * (s2 * nrm.reshape(b, -1) + qn[:, None].abs()
+                            + d_ref.abs()))
 
 
 def k2_cost(vec, ids, metric: str) -> tuple[int, int]:
@@ -227,26 +278,41 @@ def fmt(row: dict) -> str:
 
 
 def k1_case(label: str, args, flush=None, time_it: bool = False) -> dict:
-    """packed_score against its plain version: ids and distances equal."""
+    """packed_score against its plain version: ids equal, distances equal
+    bit for bit at bits=8 (exact int32 dot), within `k1_int4_bound` at
+    bits=4.  `args` may carry slots and bits after needs_norms."""
     nodes, _, pay = args[0], args[1], args[2]
+    slots = (args[7] if len(args) > 7 else None) or pay.shape[1]
+    bits = args[8] if len(args) > 8 else 8
     ids, d = packed_score(*args)
     ids_ref, d_ref = packed_score_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(ids, ids_ref):
         raise AssertionError(f"K1 {label}: candidate ids differ from plain")
-    if not torch.equal(d, d_ref):
-        raise AssertionError(f"K1 {label}: distances differ from plain")
     fin = torch.isfinite(d_ref)
+    if not torch.equal(torch.isfinite(d), fin):
+        raise AssertionError(f"K1 {label}: empty slots differ from plain")
+    if bits == 8:
+        if not torch.equal(d, d_ref):
+            raise AssertionError(f"K1 {label}: distances differ from plain")
+        agree = "equal"
+    else:
+        over = ((d - d_ref).abs() > k1_int4_bound(args, d, d_ref)) & fin
+        if over.any():
+            raise AssertionError(f"K1 {label}: {int(over.sum())} distances "
+                                 "outside the f32 summation bound")
+        agree = "within the f32 summation bound"
     err = float((d[fin] - d_ref[fin]).abs().max()) if fin.any() else 0.0
     _, deg, d_pad = pay.shape
-    row = dict(case=label, shape=[*nodes.shape, deg, d_pad], max_abs_err=err)
+    row = dict(case=label, shape=[*nodes.shape, deg, d_pad], slots=slots,
+               bits=bits, max_abs_err=err)
     if time_it:
-        nbytes, ops = k1_cost(nodes, deg, d_pad)
+        nbytes, ops, peak = k1_cost(nodes, slots, d_pad, bits)
         timed(row, lambda: packed_score(*args),
-              lambda: packed_score_plain(*args), nbytes, ops,
-              INT8_OPS_PER_S, flush)
+              lambda: packed_score_plain(*args), nbytes, ops, peak, flush)
     say(f"[K1 packed_score] {label} B={nodes.shape[0]} E={nodes.shape[1]} "
-        f"deg={deg} d_pad={d_pad}: equal; {fmt(row)}")
+        f"deg={deg} slots={slots} d_pad={d_pad} bits={bits}: {agree}; "
+        f"{fmt(row)}")
     return row
 
 
@@ -457,14 +523,21 @@ def synthetic_packed(n: int, deg: int, d_pad: int, seed: int,
     return pay, torch.cat([ids, norms], dim=1)
 
 
-def k1_inputs(n: int, b: int, e: int, d_pad: int, gen, neg: float = 0.02):
+def k1_inputs(n: int, b: int, e: int, d_pad: int, gen, neg: float = 0.02,
+              bits: int = 8):
+    """Random nodes (some -1, all of query 0), a query row per query (int8
+    [b, d_pad], or for bits=4 bf16 values of q/s [b, 2·d_pad]) and norms."""
     dev = DEV
     nodes = gen.integers(0, n, size=(b, e)).astype(np.int32)
     nodes[gen.random((b, e)) < neg] = -1
     if b:
         nodes[0, :] = -1  # one query with nothing to expand
-    q8 = torch.from_numpy(
-        gen.integers(-127, 128, size=(b, d_pad), dtype=np.int8)).to(dev)
+    if bits == 8:
+        q8 = torch.from_numpy(
+            gen.integers(-127, 128, size=(b, d_pad), dtype=np.int8)).to(dev)
+    else:
+        q8 = torch.from_numpy((gen.standard_normal((b, 2 * d_pad)) * 3)
+                              .astype(np.float32)).to(dev).to(torch.bfloat16)
     qn = torch.from_numpy(gen.random(b).astype(np.float32) * 100).to(dev)
     return torch.from_numpy(nodes).to(dev), q8, qn
 
@@ -506,8 +579,42 @@ def check_k1_edges(gen) -> list[dict]:
             assert off.data_ptr() % 16
             rows.append(k1_case("meta base misaligned",
                                 (nodes, off, pay, q8, qn, scale, True)))
+            for slots in (1, deg):
+                rows.append(k1_case(f"slots={slots}", (
+                    nodes, meta, pay, q8, qn, scale, True, slots, 8)))
+            rows.append(k1_case("slots=17 meta misaligned", (
+                nodes, off, pay, q8, qn, scale, True, 17, 8)))
+        if label == "d_pad=256":  # deg 32: the meta row rides in the ring
+            for slots in (17, 31):
+                rows.append(k1_case(f"slots={slots} meta in ring", (
+                    nodes, meta, pay, q8, qn, scale, False, slots, 8)))
         del pay, meta
+    rows += check_k1_int4(scale, gen)
     check_k1_empty(scale)
+    return rows
+
+
+def check_k1_int4(scale, gen) -> list[dict]:
+    """bits=4 at d=100 (64 stored bytes, the components past 100 zero in
+    payload and query, as a pack leaves them) and d=768 (384 bytes: the
+    generic path), with and without slots, l2 and ip."""
+    rows = []
+    for label, n, deg, d, b in (("bits=4 d=100", 50_000, 32, 100, 2000),
+                                ("bits=4 d=768", 20_000, 32, 768, 500),
+                                ("bits=4 deg=33 d=128", 20_000, 33, 128, 300)):
+        stored = packed_mod.pack_d_pad(d) // 2
+        pay, meta = synthetic_packed(n, deg, stored, seed=d + deg)
+        nodes, q16, qn = k1_inputs(n, b, 2, stored, gen, bits=4)
+        if d % 128:  # zero the padded components' nibbles and query values
+            pay[:, :, d // 2:] = 0
+            q16[:, d:] = 0
+        for slots in (None, 9):
+            for needs_norms in (True, False):
+                tag = (f"{label} slots={slots or deg} "
+                       f"{'l2' if needs_norms else 'ip'}")
+                rows.append(k1_case(tag, (nodes, meta, pay, q16, qn, scale,
+                                          needs_norms, slots, 4)))
+        del pay, meta
     return rows
 
 
@@ -697,6 +804,256 @@ def cold_ids(gen, b: int, k: int, n: int) -> torch.Tensor:
     ids = gen.integers(-1, n, size=(b, k)).astype(np.int32)
     ids[:, 0] = -1
     return torch.from_numpy(ids).to(DEV)
+
+
+# ------------------------------------------- phase F: the packed options
+def paired_qps(fn_a, fn_b, q) -> dict:
+    """QPS of two searches in F_PAIRS alternating pairs (a b, b a, a b,
+    ...), each run by the measure_qps protocol at F_PAIR_REPS timed
+    batches: the medians, b's wins, and the quartile spread of a's own
+    runs, so a difference is claimed only where b wins at least nine
+    pairs in ten and the medians differ by more than that spread."""
+    runs = {"a": [], "b": []}
+    for i in range(F_PAIRS):
+        order = ("a", "b") if i % 2 == 0 else ("b", "a")
+        for side in order:
+            fn = fn_a if side == "a" else fn_b
+            runs[side].append(harness_mod.measure_qps(
+                fn, q, batch=QPS_BATCH, warmup=F_PAIR_WARMUP,
+                reps=F_PAIR_REPS))
+    qa, qb = runs["a"], runs["b"]
+    quart = statistics.quantiles(qa, n=4)
+    out = dict(median_a=statistics.median(qa), median_b=statistics.median(qb),
+               b_wins=sum(b > a for a, b in zip(qa, qb)), pairs=F_PAIRS,
+               a_spread=quart[2] - quart[0])
+    diff = abs(out["median_b"] - out["median_a"])
+    out["resolved"] = diff > out["a_spread"] and (
+        out["b_wins"] >= 0.9 * F_PAIRS or out["b_wins"] <= 0.1 * F_PAIRS)
+    return out
+
+
+def fmt_pairs(p: dict) -> str:
+    return (f"median QPS {p['median_a']:.0f} -> {p['median_b']:.0f}, the "
+            f"option wins {p['b_wins']} of {p['pairs']} pairs, spread of "
+            f"the full-byte runs {p['a_spread']:.0f}: "
+            f"{'resolved' if p['resolved'] else 'unresolved'}")
+
+
+def phase_f(index, queries, qps_queries, gt, smi: str, flush,
+            gen) -> tuple[dict, list, list]:
+    """The packed engine's options on main's bulk-built 1M graph, through
+    `models/packed.py` and `models/refine.py` (no public entry point takes
+    them, as in the JAX package): F1 fused == unfused; F2 the deg_limit
+    ladder; F3 bits=4 on main's data, and its guard on a grid-aligned
+    100k set; F4 the refined half-degree graph.  Then K1 at each new
+    variant and K2 at refine's block, cold and on the inputs captured
+    here."""
+    from ocaml_hnsw_tpu_torch.models import refine as refine_mod
+
+    g, seeds = index.graph, index._seed_index()
+    packed = index._packed_index()
+    q_t = torch.from_numpy(queries).to(DEV)
+    qq_t = torch.from_numpy(qps_queries).to(DEV)
+    k = QUERY_KNOBS["k"]
+    out, launches, k1_rows, k2_rows = {}, {}, [], []
+
+    def search(pk, q, graph=None, seed_index=None, **kw):
+        return packed_mod.knn_search_packed(
+            graph if graph is not None else g, pk, q, metric="l2",
+            seeds=seed_index if seed_index is not None else seeds, seed_e=8,
+            **{**QUERY_KNOBS, **kw})
+
+    def rung(pk, graph=None, truth=gt, qs=q_t, qps_q=qq_t, seed_index=None,
+             **kw):
+        """recall@10 on `qs` and QPS (measure_qps protocol) on `qps_q`."""
+        ids, d = search(pk, qs, graph, seed_index, **kw)
+        rec = recall_of(ids.cpu().numpy(), truth)
+        qps = harness_mod.measure_qps(
+            lambda x: search(pk, x, graph, seed_index, **kw)[0], qps_q,
+            batch=QPS_BATCH) if qps_q is not None else None
+        return dict(recall=rec, qps=qps), ids, d
+
+    # F1: fused layout, identical results; both timed by the measure_qps
+    # protocol (the main path's own QPS adds knn_query's host copies), so
+    # the unfused rung is the yardstick of F3 and F4
+    reset_launches()
+    fp = packed_mod.pack_graph(g, "l2", fused=True)
+    base, ids_u, d_u = rung(packed)
+    row_f, ids_f, d_f = rung(fp, fused=True)
+    launches["F1_fused"] = read_launches()
+    require_launches("F1", launches["F1_fused"],
+                     ["gather_dists", "packed_score"])
+    if not (torch.equal(ids_u, ids_f) and torch.equal(d_u, d_f)):
+        raise AssertionError("F1: fused results differ from unfused")
+    rec_u = base["recall"]
+    out["fused"] = dict(recall=rec_u, qps_unfused=base["qps"],
+                        qps_fused=row_f["qps"], identical=True)
+    del fp
+    say(f"[F1 fused] pack_graph(fused=True), chunk_w {packed.chunk_w}: ids "
+        f"and distances identical to the unfused pack over {N_QUERIES} "
+        f"queries, recall@10 {rec_u:.4f}; QPS unfused {base['qps']:.0f}, "
+        f"fused {row_f['qps']:.0f} (measure_qps protocol) [{smi}]")
+
+    # F2: the deg_limit ladder on the default pack (W=2048: 16 per chunk)
+    reset_launches()
+    ladder = []
+    with recording(packed_mod, "packed_score") as calls:
+        search(packed, qq_t, deg_limit=16)
+    slots_call = calls[CAPTURE_ITER]
+    del calls
+    for dl, extra in [(dl, {}) for dl in F_DEG_LIMITS] + [
+            (F_RAISED["deg_limit"], F_RAISED)]:
+        kw = {**extra, "deg_limit": dl}
+        row, _, _ = rung(packed, **kw)
+        row.update(deg_limit=dl, slots=packed_mod.packed_slots(packed, dl),
+                   max_iters=kw.get("max_iters", QUERY_KNOBS["max_iters"]))
+        ladder.append(row)
+        say(f"[F2 deg_limit] deg_limit={dl} -> {row['slots']} slots, "
+            f"max_iters {row['max_iters']}: recall@10 {row['recall']:.4f}, "
+            f"QPS {row['qps']:.0f} [{smi}]")
+    launches["F2_deg_limit"] = read_launches()
+    require_launches("F2", launches["F2_deg_limit"],
+                     ["gather_dists", "packed_score"])
+    if [r["slots"] for r in ladder[:3]] != [16, 16, 32]:
+        raise AssertionError(f"F2: effective slots {ladder}")
+    wide = packed_mod.pack_graph(g, "l2", max_chunk=4096)
+    wide_slots = packed_mod.packed_slots(wide, 16)
+    if wide.chunk_w != 4096 or wide_slots != 32:
+        raise AssertionError(f"F2: max_chunk=4096 gives W={wide.chunk_w}, "
+                             f"{wide_slots} slots at deg_limit=16")
+    del wide
+    say(f"[F2 deg_limit] repacked with max_chunk=4096: W=4096, deg_limit=16"
+        f" -> {wide_slots} slots (one chunk row holds all 32)")
+    out["deg_limit"] = ladder
+    pairs = paired_qps(lambda x: search(packed, x, deg_limit=24)[0],
+                       lambda x: search(packed, x, deg_limit=16)[0], qq_t)
+    out["deg_limit_pairs"] = pairs
+    say(f"[F2 deg_limit] 32 -> 16 slots, same loop, in pairs: "
+        f"{fmt_pairs(pairs)} [{smi}]")
+
+    # F3: bits=4 on main's clustered data (measured, not tuned)
+    reset_launches()
+    p4 = packed_mod.pack_graph(g, "l2", bits=4)
+    with recording(packed_mod, "packed_score") as calls:
+        search(p4, qq_t, bits=4)
+    int4_call = calls[2 * CAPTURE_ITER]  # first interleaved half
+    del calls
+    row4, _, _ = rung(p4, bits=4)
+    pairs = paired_qps(lambda x: search(packed, x)[0],
+                       lambda x: search(p4, x, bits=4)[0], qq_t)
+    out["int4_pairs"] = pairs
+    say(f"[F3 bits=4] int8 -> int4 at the main knobs, in pairs: "
+        f"{fmt_pairs(pairs)} [{smi}]")
+    launches["F3_int4"] = read_launches()
+    require_launches("F3", launches["F3_int4"],
+                     ["gather_dists", "packed_score"])
+    say(f"[F3 bits=4] main's 1M clustered data, {p4.pay.nbytes / 2**30:.2f}"
+        f" GiB payload (int8 {packed.pay.nbytes / 2**30:.2f}): recall@10 "
+        f"{row4['recall']:.4f}, QPS {row4['qps']:.0f} at the main knobs "
+        f"[{smi}]")
+    # its guard: a grid-aligned set, where int4 quantizes exactly (its own
+    # seed, so the set does not depend on which phases ran before)
+    grng = np.random.default_rng(F_GRID_SEED)
+    grid = grng.integers(-7, 8, size=(F_GRID_N, DIM)).astype(np.float32)
+    gq = grid[grng.integers(0, F_GRID_N, N_QUERIES)] + grng.integers(
+        -1, 2, size=(N_QUERIES, DIM)).astype(np.float32)
+    gidx = Index("l2", DIM, device=DEV.type)
+    gidx.init_index(max_elements=F_GRID_N, M=M, ef_construction=EFC)
+    gidx.add_items(grid)
+    gq_t = torch.from_numpy(gq).to(DEV)
+    ggt = device_ground_truth(torch.from_numpy(grid).to(DEV), gq_t, k, "l2")
+    gseeds = search_mod.build_seed_index(gidx.graph, "l2")
+    r8, _, _ = rung(packed_mod.pack_graph(gidx.graph, "l2"), gidx.graph, ggt,
+                    gq_t, None, gseeds)
+    r4, _, _ = rung(packed_mod.pack_graph(gidx.graph, "l2", bits=4),
+                    gidx.graph, ggt, gq_t, None, gseeds, bits=4)
+    del gidx
+    out["int4"] = dict(main=row4, grid_int8=r8["recall"],
+                       grid_int4=r4["recall"])
+    say(f"[F3 bits=4 guard] grid-aligned {F_GRID_N}x{DIM} in [-7, 7], bulk "
+        f"built: recall@10 int8 {r8['recall']:.4f}, int4 {r4['recall']:.4f}"
+        f" (int4 >= int8 - {F_INT4_SLACK})")
+    if r4["recall"] < r8["recall"] - F_INT4_SLACK:
+        raise AssertionError(f"F3: int4 recall {r4['recall']:.4f} < int8 "
+                             f"{r8['recall']:.4f} - {F_INT4_SLACK}")
+
+    # F4: the refined half-degree graph
+    seconds, k2_launches = {}, {}
+    for hops in (0, 1):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording(refine_mod, "dists_to_ids", keep=1,
+                       want=lambda a: a[5].shape[0] == 4096) as calls:
+            half = refine_mod.refined_graph(g, F_REFINE_DEG, "l2", hops=hops)
+        torch.cuda.synchronize()
+        seconds[hops] = time.perf_counter() - t0
+        k2_launches[hops] = read_launches()
+        require_launches(f"F4 refine hops={hops}", k2_launches[hops],
+                         ["gather_dists"])
+        if hops == 0:
+            refine_call, half0 = k2_args(calls[0]), half
+    launches["F4_refine"] = {
+        kern: k2_launches[0][kern] + k2_launches[1][kern]
+        for kern in k2_launches[0]}
+    reset_launches()
+    hp = packed_mod.pack_graph(half0, "l2")
+    rungs = {}
+    with recording(packed_mod, "packed_score") as calls:
+        search(hp, qq_t, half0)
+    half_call = calls[2 * CAPTURE_ITER]
+    del calls
+    for mi in (QUERY_KNOBS["max_iters"], F_REFINE_MI):
+        rungs[mi], _, _ = rung(hp, half0, max_iters=mi)
+    r1, _, _ = rung(packed_mod.pack_graph(half, "l2"), half, qps_q=None,
+                    max_iters=F_REFINE_MI)
+    launches["F4_half_query"] = read_launches()
+    require_launches("F4 query", launches["F4_half_query"],
+                     ["gather_dists", "packed_score"])
+    out["refine"] = dict(seconds=seconds, launches=k2_launches,
+                         rungs={str(mi): r for mi, r in rungs.items()},
+                         recall_hops1=r1["recall"])
+    say(f"[F4 refine] refined_graph(g, {F_REFINE_DEG}, 'l2') over "
+        f"{g.n_cap} slots: {seconds[0]:.2f} s, launches "
+        f"{json.dumps(k2_launches[0])}; hops=1: {seconds[1]:.2f} s, "
+        f"{json.dumps(k2_launches[1])}; "
+        f"half-degree pack {hp.pay.nbytes / 2**30:.2f} GiB: "
+        + "; ".join(f"max_iters {mi}: recall@10 {r['recall']:.4f}, QPS "
+                    f"{r['qps']:.0f}" for mi, r in rungs.items())
+        + f" (full degree at the main knobs: {rec_u:.4f}); hops=1 graph at "
+        f"max_iters {F_REFINE_MI}: {r1['recall']:.4f} [{smi}]")
+    if rungs[F_REFINE_MI]["recall"] < RECALL_FLOOR:
+        raise AssertionError(f"F4: half-degree recall@10 "
+                             f"{rungs[F_REFINE_MI]['recall']:.4f} < "
+                             f"{RECALL_FLOOR}")
+    del half
+    # the unfused yardstick once more: how far the host clock moved the
+    # eager loop's QPS within this phase
+    again, _, _ = rung(packed)
+    out["fused"]["qps_unfused_again"] = again["qps"]
+    say(f"[F] main knobs on the plain pack again: QPS {again['qps']:.0f} "
+        f"(first {base['qps']:.0f}) [{smi}]")
+
+    # kernels at the new variants, cold and on the inputs captured above
+    for label, args, pk, n in (
+            ("F2 slots=16", slots_call, packed, N),
+            ("F3 bits=4", int4_call, p4, N),
+            ("F4 refined deg=16", half_call, hp, N)):
+        b, e = args[0].shape
+        nodes, _, _ = k1_inputs(n, b, e, pk.d_pad, gen)
+        tag = f"B={b} E={e}"
+        k1_rows += [k1_case(f"{label} cold {tag}", (nodes,) + tuple(args[1:]),
+                            flush, time_it=True),
+                    k1_case(f"{label} real {tag}", args, flush, time_it=True)]
+    vec, sc, qq, ids, metric = refine_call
+    k2_rows += [k2_case(f"F4 refine block cold {tuple(ids.shape)}", vec, sc,
+                        qq, cold_ids(gen, *ids.shape, N), metric, flush,
+                        time_it=True),
+                k2_case(f"F4 refine block real {tuple(ids.shape)}", vec, sc,
+                        qq, ids, metric, flush, time_it=True)]
+    del p4, hp, half0
+    out["launches"] = launches
+    return out, k1_rows, k2_rows
 
 
 # ------------------------------------------------- phase A: small index
@@ -1230,8 +1587,11 @@ def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
                k2_case(f"E build round real {k2_block}", vec, sc, qq, ids,
                        metric, flush, time_it=True)]
     vec, sc, qq, ids, metric = k2_args(rerank[-1])
-    k2_rows.append(k2_case(f"E shard rerank real {tuple(ids.shape)}", vec,
-                           sc, qq, ids, metric, flush, time_it=True))
+    k2_rows += [k2_case(f"E shard rerank cold {tuple(ids.shape)}", vec, sc,
+                        qq, cold_ids(gen, *ids.shape, n0), metric, flush,
+                        time_it=True),
+                k2_case(f"E shard rerank real {tuple(ids.shape)}", vec, sc,
+                        qq, ids, metric, flush, time_it=True)]
     return out, k1_rows, k2_rows
 
 
@@ -1267,14 +1627,16 @@ def main(argv: list[str]) -> int:
     flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
 
     # ---- phases A and B: the incremental build and the classic engine
-    t0 = time.perf_counter()
-    phase_a_out, rows = phase_a(smi, flush, gen)
-    k2_rows += rows
-    say(f"[A] phase took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_b_out, rows = phase_b(smi, flush, gen)
-    k2_rows += rows
-    say(f"[B] phase took {time.perf_counter() - t0:.1f} s")
+    phase_f_only = "--phase-f" in argv
+    if not phase_f_only:
+        t0 = time.perf_counter()
+        phase_a_out, rows = phase_a(smi, flush, gen)
+        k2_rows += rows
+        say(f"[A] phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_b_out, rows = phase_b(smi, flush, gen)
+        k2_rows += rows
+        say(f"[B] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- main path: bulk build + packed query through the public API
     index = Index("l2", DIM, device=DEV.type)
@@ -1326,6 +1688,12 @@ def main(argv: list[str]) -> int:
     med = statistics.median(times)
     say(f"[main] QPS {QPS_BATCH / med:.0f} (median of 5 batches of "
         f"{QPS_BATCH}: {med * 1e3:.1f} ms) [{smi}]")
+    if phase_f_only:
+        t0 = time.perf_counter()
+        phase_f(index, queries, qps_queries, gt, smi, flush, gen)
+        say(f"[F] phase took {time.perf_counter() - t0:.1f} s; --phase-f: "
+            "stop here")
+        return 0
     before = (gather_dists.launches, packed_score.launches)
     k1_calls, seed_call, rerank_call = capture_query(index, qps_queries)
     batch_launches = {"gather_dists": gather_dists.launches - before[0],
@@ -1356,6 +1724,14 @@ def main(argv: list[str]) -> int:
     for kern, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{kern} was not launched on the main path")
+
+    # ---- phase F: the packed options on main's graph (before C grows it)
+    t0 = time.perf_counter()
+    f_out, rows1, rows2 = phase_f(index, queries, qps_queries, gt, smi,
+                                  flush, gen)
+    k1_rows += rows1
+    k2_rows += rows2
+    say(f"[F] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- phase C: add after the bulk build (packed-build upkeep, K1)
     t0 = time.perf_counter()
@@ -1399,6 +1775,7 @@ def main(argv: list[str]) -> int:
         "B_ingest": phase_b_out["launches_ingest"],
         **{f"B_query_batch_ef{r['ef']}_mi{r['max_iters']}":
            r["launches_per_batch"] for r in phase_b_out["sweep"]},
+        **f_out["launches"],
         "C_add": phase_c_out["launches_add"],
         "D1_glove1m": d1_out["launches"],
         "D2_deep10m_flat": d2_out["launches"],
@@ -1421,6 +1798,7 @@ def main(argv: list[str]) -> int:
              **headline(k1_rows, f"real B={QPS_BATCH // 2}"), library_ms=None,
              library_note=NO_LIBRARY,
              shapes=[{"case": r["case"], "shape": r["shape"],
+                      "slots": r["slots"], "bits": r["bits"],
                       **{s: r[s] for s in shapes}}
                      for r in k1_rows if "ms" in r]),
         dict(name="gather_dists", route="cuda",

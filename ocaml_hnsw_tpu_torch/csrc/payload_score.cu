@@ -16,6 +16,18 @@
 // compiler cannot contract it into an FMA: the result is bit-identical to the
 // plain torch version in ops/kernels/payload_score.py.
 //
+// Two variants, as the JAX engine's options (models/packed.py):
+//   - slots (deg_limit): only the first `slots` rows of each node's slab are
+//     scored.  They are a prefix of the slab, so the bulk copy just shrinks
+//     to slots * d_pad bytes; the meta row still comes whole (ids at [0,
+//     slots), norms at [deg, deg + slots)).  Output [B, E * slots].
+//   - kBits = 4: each slab row is d_pad bytes of nibble pairs (low nibble the
+//     even component, high the odd one) and the query row is bf16 q/s of
+//     2 * d_pad components.  Lane r widens both to f32 and sums nibble x query
+//     with fmaf (each product is exact in f32: 4 x 8 significant bits), so
+//     only the order of the f32 sum differs from the plain version's.  The
+//     epilogue is the same, with the dot an f32 instead of an int.
+//
 // What bounds it on an H100: memory, as gathers of whole slabs.  At the
 // main-path shape (B = 4096 or 8192 queries, E = 2 expanded nodes, deg = 32,
 // d_pad = 128) each (query, node) item reads a 4 KB slab, a 256 B meta row and
@@ -118,8 +130,8 @@ __host__ __device__ constexpr int header_bytes(int barriers) {
 struct Item {  // where the copies of this warp's items come from
   const int8_t* pay;
   const int* meta;
-  const int8_t* q8;
-  int deg, d_pad, E, meta_in_ring, stage_bytes;
+  const unsigned char* q;  // int8 [B, d_pad] or bf16 [B, 2 d_pad]
+  int deg, d_pad, slots, q_bytes, E, meta_in_ring, stage_bytes;
   long long lo;
 };
 
@@ -132,35 +144,106 @@ __device__ __forceinline__ void issue(const Item& it, unsigned char* ring,
     mbar_arrive(&full[s]);  // nothing to fetch
     return;
   }
-  const int slab_bytes = it.deg * it.d_pad;
+  const int slab_bytes = it.slots * it.d_pad;  // a prefix of the node's slab
   const int meta_bytes = it.meta_in_ring ? 8 * it.deg : 0;
   unsigned char* st = ring + static_cast<size_t>(s) * it.stage_bytes;
-  mbar_arrive_expect_tx(&full[s], slab_bytes + it.d_pad + meta_bytes);
-  bulk_load(st, it.pay + static_cast<size_t>(node) * slab_bytes, slab_bytes,
-            &full[s]);
+  mbar_arrive_expect_tx(&full[s], slab_bytes + it.q_bytes + meta_bytes);
+  bulk_load(st,
+            it.pay + static_cast<size_t>(node) * it.deg * it.d_pad,
+            slab_bytes, &full[s]);
   bulk_load(st + slab_bytes,
-            it.q8 + static_cast<size_t>((it.lo + i) / it.E) * it.d_pad,
-            it.d_pad, &full[s]);
+            it.q + static_cast<size_t>((it.lo + i) / it.E) * it.q_bytes,
+            it.q_bytes, &full[s]);
   if (meta_bytes)
-    bulk_load(st + slab_bytes + it.d_pad,
+    bulk_load(st + slab_bytes + it.q_bytes,
               it.meta + static_cast<size_t>(node) * 2 * it.deg, meta_bytes,
               &full[s]);
 }
 
-// kNvec: 16-byte chunks per payload row (d_pad / 16) fixed at compile time,
-// or 0 to read it from d_pad.
+// Exact int32 dot of an int8 slab row with the int8 query row, 16-byte
+// chunk (c + r) mod nvec at step c (module comment).
 template <int kNvec>
+__device__ __forceinline__ int dot_int8(const int4* row, const int4* qv,
+                                        int r, int nvec) {
+  int acc = 0;
+  if (kNvec > 0) {
+#pragma unroll
+    for (int c = 0; c < kNvec; ++c) {
+      const int cc = (c + r) % kNvec;  // rotated: no bank conflicts
+      const int4 x = row[cc];
+      const int4 y = qv[cc];
+      acc = __dp4a(x.x, y.x, acc);
+      acc = __dp4a(x.y, y.y, acc);
+      acc = __dp4a(x.z, y.z, acc);
+      acc = __dp4a(x.w, y.w, acc);
+    }
+  } else {
+    int cc = r % nvec;
+#pragma unroll 4
+    for (int c = 0; c < nvec; ++c) {
+      const int4 x = row[cc];
+      const int4 y = qv[cc];
+      acc = __dp4a(x.x, y.x, acc);
+      acc = __dp4a(x.y, y.y, acc);
+      acc = __dp4a(x.z, y.z, acc);
+      acc = __dp4a(x.w, y.w, acc);
+      cc = cc + 1 == nvec ? 0 : cc + 1;
+    }
+  }
+  return acc;
+}
+
+// Four payload bytes (8 components: per byte the low nibble, then the high)
+// against the 8 bf16 query values in the 4 words of `q`, summed into acc.
+__device__ __forceinline__ float nibble_fma(int x, uint4 q, float acc) {
+  const uint32_t qw[4] = {q.x, q.y, q.z, q.w};
+  const uint32_t ux = static_cast<uint32_t>(x);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int lo = static_cast<int>(ux << (28 - 8 * t)) >> 28;  // signed
+    const int hi = static_cast<int>(ux << (24 - 8 * t)) >> 28;
+    acc = fmaf(static_cast<float>(lo), __uint_as_float(qw[t] << 16), acc);
+    acc = fmaf(static_cast<float>(hi), __uint_as_float(qw[t] & 0xffff0000u),
+               acc);
+  }
+  return acc;
+}
+
+// f32 dot of a nibble-packed slab row with the bf16 query row: 16 payload
+// bytes (32 components) pair with 4 16-byte chunks of the query, in the
+// same rotated chunk order as dot_int8.
+template <int kNvec>
+__device__ __forceinline__ float dot_int4(const int4* row, const uint4* qv,
+                                          int r, int nvec) {
+  float acc = 0.0f;
+  const int n = kNvec > 0 ? kNvec : nvec;
+#pragma unroll 4
+  for (int c = 0; c < n; ++c) {
+    const int cc = (c + r) % n;
+    const int4 x = row[cc];
+    acc = nibble_fma(x.x, qv[4 * cc + 0], acc);
+    acc = nibble_fma(x.y, qv[4 * cc + 1], acc);
+    acc = nibble_fma(x.z, qv[4 * cc + 2], acc);
+    acc = nibble_fma(x.w, qv[4 * cc + 3], acc);
+  }
+  return acc;
+}
+
+// kNvec: 16-byte chunks per payload row (d_pad / 16) fixed at compile time,
+// or 0 to read it from d_pad.  kBits: 8 (int8 rows, int8 query) or 4
+// (nibble rows, bf16 query).
+template <int kNvec, int kBits>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     packed_score_kernel(const int* __restrict__ nodes,
                         const int* __restrict__ meta,
                         const int8_t* __restrict__ pay,
-                        const int8_t* __restrict__ q8,
+                        const unsigned char* __restrict__ q,
                         const float* __restrict__ qn,
                         const float* __restrict__ scale,
                         int* __restrict__ cand_ids,
                         float* __restrict__ cand_d, long long n_items, int E,
-                        int deg, int d_pad, int needs_norms, int stages,
-                        int stage_bytes, int meta_in_ring) {
+                        int deg, int d_pad, int slots, int needs_norms,
+                        int stages, int stage_bytes, int meta_in_ring) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -173,7 +256,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const long long tw = static_cast<long long>(gridDim.x) * warps;
   const long long lo = n_items * gw / tw;
   const int count = static_cast<int>(n_items * (gw + 1) / tw - lo);
-  const Item it{pay, meta, q8, deg, d_pad, E, meta_in_ring, stage_bytes, lo};
+  const int q_bytes = kBits == 8 ? d_pad : 4 * d_pad;
+  const Item it{pay,   meta, q,           deg,         d_pad, slots,
+                q_bytes, E,  meta_in_ring, stage_bytes, lo};
 
   if (lane < stages) mbar_init(&full[lane], 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -187,7 +272,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const float s2 = __fmul_rn(s, s);
   const float inf = __int_as_float(0x7f800000);
   const int nvec = kNvec > 0 ? kNvec : d_pad / 16;
-  const int slab_bytes = deg * d_pad;
+  const int slab_bytes = slots * d_pad;
   for (int i = 0; i < count; ++i) {
     if (i > 0 && (i & 31) == 0) {
       cur = nxt;
@@ -198,21 +283,20 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     const float qnb = needs_norms ? qn[w / E] : 0.0f;  // ahead of the wait
     const int st_i = i % stages;
     mbar_wait(&full[st_i], (i / stages) & 1);
-    int* oid = cand_ids + w * deg;
-    float* od = cand_d + w * deg;
+    int* oid = cand_ids + w * slots;
+    float* od = cand_d + w * slots;
     if (node < 0) {
-      for (int r = lane; r < deg; r += 32) {
+      for (int r = lane; r < slots; r += 32) {
         oid[r] = -1;
         od[r] = inf;
       }
     } else {
       const unsigned char* st = ring + static_cast<size_t>(st_i) * stage_bytes;
-      const int4* qv = reinterpret_cast<const int4*>(st + slab_bytes);
       const int* mrow =
           meta_in_ring
-              ? reinterpret_cast<const int*>(st + slab_bytes + d_pad)
+              ? reinterpret_cast<const int*>(st + slab_bytes + q_bytes)
               : meta + static_cast<size_t>(node) * 2 * deg;
-      for (int r = lane; r < deg; r += 32) {
+      for (int r = lane; r < slots; r += 32) {
         const int id = mrow[r];
         if (id < 0) {
           oid[r] = -1;
@@ -220,37 +304,26 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           continue;
         }
         const int4* row = reinterpret_cast<const int4*>(st + r * d_pad);
-        int acc = 0;
-        if (kNvec > 0) {
-#pragma unroll
-          for (int c = 0; c < kNvec; ++c) {
-            const int cc = (c + r) % kNvec;  // rotated: no bank conflicts
-            const int4 x = row[cc];
-            const int4 y = qv[cc];
-            acc = __dp4a(x.x, y.x, acc);
-            acc = __dp4a(x.y, y.y, acc);
-            acc = __dp4a(x.z, y.z, acc);
-            acc = __dp4a(x.w, y.w, acc);
-          }
-        } else {
-          int cc = r % nvec;
-#pragma unroll 4
-          for (int c = 0; c < nvec; ++c) {
-            const int4 x = row[cc];
-            const int4 y = qv[cc];
-            acc = __dp4a(x.x, y.x, acc);
-            acc = __dp4a(x.y, y.y, acc);
-            acc = __dp4a(x.z, y.z, acc);
-            acc = __dp4a(x.w, y.w, acc);
-            cc = cc + 1 == nvec ? 0 : cc + 1;
-          }
-        }
         float d;
-        if (needs_norms) {
-          const float t = static_cast<float>(mrow[deg + r] - 2 * acc);
-          d = __fadd_rn(__fmul_rn(s2, t), qnb);
+        if constexpr (kBits == 8) {
+          const int acc = dot_int8<kNvec>(
+              row, reinterpret_cast<const int4*>(st + slab_bytes), r, nvec);
+          if (needs_norms) {
+            const float t = static_cast<float>(mrow[deg + r] - 2 * acc);
+            d = __fadd_rn(__fmul_rn(s2, t), qnb);
+          } else {
+            d = __fsub_rn(1.0f, __fmul_rn(s2, static_cast<float>(acc)));
+          }
         } else {
-          d = __fsub_rn(1.0f, __fmul_rn(s2, static_cast<float>(acc)));
+          const float acc = dot_int4<kNvec>(
+              row, reinterpret_cast<const uint4*>(st + slab_bytes), r, nvec);
+          if (needs_norms) {
+            const float t = __fsub_rn(static_cast<float>(mrow[deg + r]),
+                                      __fmul_rn(2.0f, acc));
+            d = __fadd_rn(__fmul_rn(s2, t), qnb);
+          } else {
+            d = __fsub_rn(1.0f, __fmul_rn(s2, acc));
+          }
         }
         oid[r] = id;
         od[r] = d;
@@ -270,13 +343,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
-template <int kNvec>
+template <int kNvec, int kBits>
 int launch(const void* nodes, const void* meta, const void* pay,
-           const void* q8, const void* qn, const void* scale, void* cand_ids,
+           const void* q, const void* qn, const void* scale, void* cand_ids,
            void* cand_d, long long n_items, int E, int deg, int d_pad,
-           int needs_norms, int stages, int warps, int stage_bytes,
-           int smem_bytes, int meta_in_ring, cudaStream_t stream) {
-  auto kernel = packed_score_kernel<kNvec>;
+           int slots, int needs_norms, int stages, int warps,
+           int stage_bytes, int smem_bytes, int meta_in_ring,
+           cudaStream_t stream) {
+  auto kernel = packed_score_kernel<kNvec, kBits>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -295,10 +369,10 @@ int launch(const void* nodes, const void* meta, const void* pay,
       static_cast<unsigned>(need < resident ? need : resident);
   kernel<<<blocks, threads, smem_bytes, stream>>>(
       static_cast<const int*>(nodes), static_cast<const int*>(meta),
-      static_cast<const int8_t*>(pay), static_cast<const int8_t*>(q8),
+      static_cast<const int8_t*>(pay), static_cast<const unsigned char*>(q),
       static_cast<const float*>(qn), static_cast<const float*>(scale),
       static_cast<int*>(cand_ids), static_cast<float*>(cand_d), n_items, E,
-      deg, d_pad, needs_norms, stages, stage_bytes, meta_in_ring);
+      deg, d_pad, slots, needs_norms, stages, stage_bytes, meta_in_ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,29 +381,33 @@ int launch(const void* nodes, const void* meta, const void* pay,
 // The ring's shape (stages per warp, warps per block, stage_bytes,
 // smem_bytes, meta_in_ring) comes from the wrapper's launch plan
 // (ops/kernels/payload_score.py::launch_plan); the grid is as many blocks as
-// are resident at once.  Returns cudaGetLastError() after the launch.
+// are resident at once.  d_pad is the stored bytes per slab row; q is int8
+// [B, d_pad] for bits 8, bf16 [B, 2 d_pad] for bits 4.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int ohnsw_packed_score(const void* nodes, const void* meta,
-                                  const void* pay, const void* q8,
+                                  const void* pay, const void* q,
                                   const void* qn, const void* scale,
                                   void* cand_ids, void* cand_d, int B, int E,
                                   int deg, int d_pad, int needs_norms,
-                                  int stages, int warps, int stage_bytes,
-                                  int smem_bytes, int meta_in_ring,
-                                  void* stream) {
+                                  int slots, int bits, int stages, int warps,
+                                  int stage_bytes, int smem_bytes,
+                                  int meta_in_ring, void* stream) {
   const long long n_items = static_cast<long long>(B) * E;
   if (n_items == 0 || deg == 0) return 0;
-  if (d_pad % 16 != 0 || stages < 1 || stages > 32 || warps < 1 ||
+  const int q_bytes = bits == 8 ? d_pad : 4 * d_pad;
+  if ((bits != 8 && bits != 4) || slots < 1 || slots > deg ||
+      d_pad % 16 != 0 || stages < 1 || stages > 32 || warps < 1 ||
       warps > kMaxWarps || stage_bytes % 16 != 0 ||
-      stage_bytes < deg * d_pad + d_pad + (meta_in_ring ? 8 * deg : 0) ||
+      stage_bytes < slots * d_pad + q_bytes + (meta_in_ring ? 8 * deg : 0) ||
       (meta_in_ring && deg % 2 != 0) ||
       smem_bytes < header_bytes(warps * stages) + warps * stages * stage_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_pad == 128)
-    return launch<8>(nodes, meta, pay, q8, qn, scale, cand_ids, cand_d,
-                     n_items, E, deg, d_pad, needs_norms, stages, warps,
-                     stage_bytes, smem_bytes, meta_in_ring, st);
-  return launch<0>(nodes, meta, pay, q8, qn, scale, cand_ids, cand_d, n_items,
-                   E, deg, d_pad, needs_norms, stages, warps, stage_bytes,
-                   smem_bytes, meta_in_ring, st);
+#define OHNSW_LAUNCH(NVEC, BITS)                                          \
+  launch<NVEC, BITS>(nodes, meta, pay, q, qn, scale, cand_ids, cand_d,   \
+                     n_items, E, deg, d_pad, slots, needs_norms, stages, \
+                     warps, stage_bytes, smem_bytes, meta_in_ring, st)
+  if (bits == 8) return d_pad == 128 ? OHNSW_LAUNCH(8, 8) : OHNSW_LAUNCH(0, 8);
+  return d_pad == 64 ? OHNSW_LAUNCH(4, 4) : OHNSW_LAUNCH(0, 4);
+#undef OHNSW_LAUNCH
 }

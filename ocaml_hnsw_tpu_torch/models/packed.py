@@ -1,8 +1,8 @@
 """Packed inline-neighbor query engine, ported from
-`ocaml_hnsw_tpu/models/packed.py` (bits=8, unfused payload).
+`ocaml_hnsw_tpu/models/packed.py`.
 
-Per node, the payload stores its deg neighbours' vectors as int8 on ONE
-global scale s (x8 = round(x/s)), so expanding a node reads one contiguous
+Per node, the payload stores its deg neighbours' vectors on ONE global
+scale s (x8 = round(x/s)), so expanding a node reads one contiguous
 [deg, d_pad] slab instead of deg scattered rows.  Queries are quantized on
 the same grid, and
 
@@ -11,14 +11,29 @@ the same grid, and
 
 where ‖x8‖² is a precomputed exact int32.  Each beam iteration's select →
 gather → score runs through the packed-score kernel (K1,
-`ops/kernels/payload_score.py`), whose dot is exact int32 (the JAX engine
-rounds each product to bf16).  Beam state stays in the f32 distance domain,
-merged by the same bitonic networks as the JAX package, and a final exact
-f32 rerank (K2) makes the returned order exact.
+`ops/kernels/payload_score.py`), whose bits=8 dot is exact int32 (the JAX
+engine rounds each product to bf16).  Beam state stays in the f32 distance
+domain, merged by the same bitonic networks as the JAX package, and a final
+exact f32 rerank (K2) makes the returned order exact.
+
+The JAX package's options, all served by K1:
+
+- `bits=4`: grid ±7, two components per byte (`_nibble_pack`), so a slab
+  is [deg, d_pad/2] bytes; the query rides as fractional bf16 q/s, and K1
+  sums nibble × query in f32.
+- `deg_limit`: score only the first slots of each node's slab (adjacency
+  rows are distance-ascending).  The JAX package fetches whole chunk rows
+  of W bytes, so the count rounds up to a chunk boundary (`packed_slots`);
+  K1 copies that prefix of the slab.
+- `fused=True`: the JAX package inlines the meta row into each chunk row;
+  K1 already reads meta and slab in one pass, so the port keeps the plain
+  layout and makes JAX's checks.
 
 Layout: the JAX package stores the payload as [N_cap·C, W] chunk rows (a
 TPU gather choice); this port stores the same bytes as [N_cap, deg, d_pad],
-the same row-major order, so `packed_from_numpy` is a reshape.
+the same row-major order, so `packed_from_numpy` is a reshape.  W
+(`PackedGraph.chunk_w`) travels with the pack, since `deg_limit` rounds by
+it.
 
 Build-time upkeep (`empty_packed`, `refresh_payload_rows`, `pack_graph(...,
 with_dist=True)`): a build into a large index keeps the payload in step with
@@ -26,8 +41,7 @@ the adjacency round by round (models/build.py), plus `dist`, the exact f32
 distance of every adjacency slot.  Those distances are computed by
 `dists_to_ids` (K2 on the card) everywhere they arise, so that the
 maintained table equals a fresh `pack_graph(..., with_dist=True)` bit for
-bit.  The int4 payload (`bits=4`), fused meta rows and `deg_limit` are not
-ported yet.
+bit.
 """
 
 from __future__ import annotations
@@ -55,25 +69,56 @@ from ocaml_hnsw_tpu_torch.utils import round_up
 #: node rows per slab of pack_graph (bounds the [slab, deg, D] f32 gather:
 #: 1 GB at deg=32, D=128)
 PACK_SLAB_ROWS = 65536
+#: bytes of per-node meta in the JAX package's fused chunk rows (32 int32
+#: ids + 32 int32 norms), split evenly across a node's chunk rows
+FUSED_META_TOTAL = 256
+
+
+def _chunk_width(total: int, max_chunk: int = 2048) -> int:
+    """The JAX package's chunk width W for a node's `total` payload bytes:
+    the whole row if it fits in max_chunk, else the first preferred width
+    <= max_chunk that divides it, else the largest divisor <= max_chunk
+    (ValueError if that is under 32)."""
+    if total <= max_chunk:
+        return total
+    for w in (4096, 3584, 3072, 2560, 2048, 1536, 1280, 1024, 512, 256, 128):
+        if w <= max_chunk and total % w == 0 and total // w >= 1:
+            return w
+    best = max((w for w in range(1, max_chunk + 1) if total % w == 0),
+               default=None)
+    if best is None or best < 32:
+        raise ValueError(
+            f"no payload chunk width <= {max_chunk} divides row size {total}"
+        )
+    return best
 
 
 @dataclasses.dataclass
 class PackedGraph:
     """Inline-neighbor payload tensors.
 
-    pay:   int8[N_cap, deg, d_pad]  node i's neighbours' int8 vectors
+    pay:   int8[N_cap, deg, d_pad]  node i's neighbours' vectors: int8, or
+                                    (bits=4) two nibbles per byte
     meta:  int32[N_cap, 2·deg]      [adjacency ids | int32 norms ‖x8‖²];
                                     ids are -1 sentinels as in adj0
     scale: f32[]                    the global quantization scale s
     dist:  f32[N_cap, deg] or None  build-maintained packs only: exact
                                     d(node, neighbour) per slot, +inf on
                                     empty slots
+    chunk_w: int                    the JAX package's W: payload bytes per
+                                    chunk row, fused meta excluded (None:
+                                    its default, `_chunk_width(deg·d_pad)`)
     """
 
     pay: torch.Tensor
     meta: torch.Tensor
     scale: torch.Tensor
     dist: torch.Tensor | None = None
+    chunk_w: int | None = None
+
+    def __post_init__(self):
+        if self.chunk_w is None:
+            self.chunk_w = _chunk_width(self.deg * self.d_pad)
 
     @property
     def deg(self) -> int:
@@ -85,17 +130,26 @@ class PackedGraph:
 
     @property
     def d_pad(self) -> int:
+        """Stored BYTES per neighbour (d_pad/2 under bits=4), as the JAX
+        package's `PackedGraph.d_pad`."""
         return self.pay.shape[2]
 
 
 def packed_from_numpy(pay, meta, scale, device: torch.device | str,
-                      dist=None) -> PackedGraph:
+                      dist=None, fused: bool = False) -> PackedGraph:
     """PackedGraph from the JAX package's arrays (`np.asarray` of its pay
     [N_cap·C, W], meta, scale and optional dist): the payload bytes are
-    row-major per node, so [N_cap·C, W] reshapes to [N_cap, deg, d_pad]."""
+    row-major per node, so [N_cap·C, W] reshapes to [N_cap, deg, d_pad].
+    A fused pack's chunk rows lead with 256/C meta bytes; those are
+    stripped (`meta` holds the same ids and norms)."""
     meta = np.asarray(meta)
     n_cap, deg = meta.shape[0], meta.shape[1] // 2
-    pay = np.asarray(pay).reshape(n_cap, deg, -1)
+    pay = np.asarray(pay)
+    w = pay.shape[1]
+    if fused:
+        mpc = FUSED_META_TOTAL // (pay.shape[0] // n_cap)
+        pay, w = pay[:, mpc:], w - mpc
+    pay = pay.reshape(n_cap, deg, -1)
 
     def put(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
@@ -105,12 +159,13 @@ def packed_from_numpy(pay, meta, scale, device: torch.device | str,
         scale=torch.tensor(float(np.asarray(scale)), dtype=torch.float32,
                            device=device),
         dist=None if dist is None else put(np.asarray(dist)),
+        chunk_w=w,
     )
 
 
 def pack_d_pad(dim: int) -> int:
-    """Payload inner dim, padded to 128 bytes as in the JAX package (whole
-    16-byte vector loads per row on the card)."""
+    """Payload inner dim, padded to 128 as in the JAX package (whole 16-byte
+    vector loads per row on the card)."""
     return round_up(dim, 128)
 
 
@@ -120,15 +175,26 @@ def _int8_sqnorm(y):
     return torch.sum(yi * yi, dim=-1, dtype=torch.int32)
 
 
+def _nibble_pack(y):
+    """int8 values in [-8, 7] -> nibble-packed int8, two per byte along the
+    last axis: byte j = (y[2j+1] << 4) | (y[2j] & 0xF).  The inverse is
+    `ops/kernels/payload_score.py::nibble_unpack`."""
+    lo = y[..., 0::2].to(torch.int32)
+    hi = y[..., 1::2].to(torch.int32)
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8)
+
+
 @torch.no_grad()
 def pack_graph(graph: GraphTensors, metric: str, scale=None,
-               with_dist: bool = False, bits: int = 8,
+               with_dist: bool = False, max_chunk: int = 2048, bits: int = 8,
                fused: bool = False) -> PackedGraph:
     """Build the inline-neighbor payload from a built graph, in slabs of
     nodes.  The global scale is max |component| of the stored vectors
-    (dequantized) over 127 — or the caller's `scale` — so integer-grid data
-    quantizes exactly.  Bytes, norms and scale equal the JAX package's
-    `pack_graph` (which multiplies by 1/s, as here)."""
+    (dequantized) over the grid (127, or 7 for bits=4) — or the caller's
+    `scale` — so integer-grid data quantizes exactly.  Bytes, norms and
+    scale equal the JAX package's `pack_graph` (which multiplies by 1/s, as
+    here).  `max_chunk` sets `chunk_w` only; a fused pack makes JAX's
+    checks and stores the plain layout (JAX's bytes, meta stripped)."""
     if get_metric(metric).matmul_score is None:
         raise ValueError(
             f"metric {metric!r} has no matmul_score; the packed engine's "
@@ -136,32 +202,44 @@ def pack_graph(graph: GraphTensors, metric: str, scale=None,
         )
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if bits != 8 or fused:
-        raise NotImplementedError(
-            "pack_graph: bits=4 and fused are not ported yet")
     vectors, scales, adj0 = graph.vectors, graph.scales, graph.adj0
     dev = vectors.device
     n_cap, deg = adj0.shape
     d = graph.dim
     d_pad = pack_d_pad(d)
+    stored = d_pad if bits == 8 else d_pad // 2  # bytes per neighbour
+    w = _chunk_width(deg * stored, max_chunk)
+    if fused:
+        c = (deg * stored) // w
+        if deg > 32 or FUSED_META_TOTAL % c or with_dist:
+            raise ValueError(
+                "fused meta layout supports deg<=32, chunk counts dividing "
+                "256, and query-only packs (no with_dist)"
+            )
+    qmax = 127 if bits == 8 else 7
     if scale is None:
         vmax = torch.amax(torch.abs(vectors.float()))
         if vectors.dtype == torch.int8:
             vmax = torch.amax(torch.abs(vectors.float()) * scales[:, None])
-        s = torch.clamp_min(vmax / 127.0, 1e-30)
+        s = torch.clamp_min(vmax / float(qmax), 1e-30)
     else:
         s = torch.clamp_min(torch.as_tensor(scale, dtype=torch.float32,
                                             device=dev), 1e-30)
     inv_s = 1.0 / s
-    pay = torch.zeros((n_cap, deg, d_pad), dtype=torch.int8, device=dev)
+    pay = torch.zeros((n_cap, deg, stored), dtype=torch.int8, device=dev)
     meta = torch.zeros((n_cap, 2 * deg), dtype=torch.int32, device=dev)
     dist = (torch.full((n_cap, deg), INF, device=dev) if with_dist
             else None)
     for start in range(0, n_cap, PACK_SLAB_ROWS):
         a = adj0[start:start + PACK_SLAB_ROWS]  # [S, deg]
         rows = gather_dequant(vectors, scales, a)  # [S, deg, D] f32
-        y = torch.clamp(torch.round(rows * inv_s), -127, 127).to(torch.int8)
-        pay[start:start + PACK_SLAB_ROWS, :, :d] = y
+        y = torch.clamp(torch.round(rows * inv_s), -qmax, qmax).to(
+            torch.int8)
+        if bits == 8:
+            pay[start:start + PACK_SLAB_ROWS, :, :d] = y
+        else:
+            pay[start:start + PACK_SLAB_ROWS] = _nibble_pack(
+                torch.nn.functional.pad(y, (0, d_pad - d)))
         meta[start:start + PACK_SLAB_ROWS, :deg] = a
         meta[start:start + PACK_SLAB_ROWS, deg:] = _int8_sqnorm(y)
         if with_dist:
@@ -169,7 +247,7 @@ def pack_graph(graph: GraphTensors, metric: str, scale=None,
             dist[start:start + PACK_SLAB_ROWS] = _slot_dists(
                 vectors, scales, own, a, metric)
     return PackedGraph(pay=pay, meta=meta, scale=s.to(torch.float32),
-                       dist=dist)
+                       dist=dist, chunk_w=w)
 
 
 def _slot_dists(vectors, scales, own, adj_rows, metric: str):
@@ -183,6 +261,29 @@ def _slot_dists(vectors, scales, own, adj_rows, metric: str):
 def quantize_queries(q, scale):
     """Round preprocessed queries onto the payload's s-grid (int8[B, D])."""
     return torch.clamp(torch.round(q / scale), -127, 127).to(torch.int8)
+
+
+def packed_slots(packed: PackedGraph, deg_limit: int | None,
+                 fused: bool = False) -> int:
+    """Neighbours K1 scores per expanded node: deg, or for deg_limit < deg
+    the JAX package's whole-chunk count (`_packed_layout`): chunk rows of
+    W bytes hold W // stored neighbours each, and ceil(deg_limit / that)
+    chunk rows are fetched.  Raises ValueError where the JAX engine cannot
+    reshape those chunk rows into whole neighbours (c·W != slots·stored),
+    and for deg_limit on a fused pack."""
+    if fused and deg_limit is not None:
+        raise ValueError("deg_limit is unsupported on fused payloads")
+    deg, stored, w = packed.deg, packed.d_pad, packed.chunk_w
+    if deg_limit is None or deg_limit >= deg:
+        return deg
+    per_chunk = max(1, w // stored)
+    c = max(1, -(-deg_limit // per_chunk))
+    slots = min(deg, c * per_chunk)
+    if c * w != slots * stored:
+        raise ValueError(
+            f"deg_limit={deg_limit}: {c} chunk rows of {w} B do not hold "
+            f"{slots} whole neighbours of {stored} B")
+    return slots
 
 
 # --------------------------------------------------- build-time maintenance
@@ -231,9 +332,10 @@ def refresh_payload_rows(packed: PackedGraph, vectors, scales, adj0, rows,
 
 
 def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
-               expand: int):
+               expand: int, slots: int | None = None, bits: int = 8):
     """One iteration of the packed beam loop as a (pk, d) -> (pk, d)
-    closure over this (sub)batch's query tensors."""
+    closure over this (sub)batch's query tensors; K1 scores the first
+    `slots` neighbours of each expanded node (all when None)."""
     expand = max(1, min(expand, ef))
     ar = torch.arange(1, expand + 1, dtype=torch.int32, device=q8.device)
 
@@ -247,9 +349,10 @@ def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
         pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
         active = torch.any(oh, dim=2)
         nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
-        # gather + score of the E·deg inlined neighbours (K1)
+        # gather + score of the E·slots inlined neighbours (K1)
         cand_ids, cand_d = packed_score(nodes, packed.meta, packed.pay, q8,
-                                        qn, packed.scale, needs_norms)
+                                        qn, packed.scale, needs_norms, slots,
+                                        bits)
         in_beam = torch.any(
             cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
         fresh = (cand_ids >= 0) & ~in_beam & first_occurrence_mask(cand_ids)
@@ -278,7 +381,7 @@ def _entries_to_packed_beam(entry_ids, entry_d, ef: int):
 def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
                                  entry_d, ef: int, needs_norms: bool,
                                  max_iters: int, expand: int = 2,
-                                 ways: int = 2):
+                                 ways: int = 2, bits: int = 8):
     """Interleaved loop: the batch splits into `ways` independent
     sub-batches, each run for exactly `max_iters` iterations (no early
     exit, as in the JAX package).  Results equal running each sub-batch
@@ -286,7 +389,8 @@ def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
     b = q8.shape[0]
     h = b // ways
     slices = [slice(i * h, (i + 1) * h) for i in range(ways)]
-    bodies = [_beam_body(packed, q8[s], qn[s], ef, needs_norms, expand)
+    bodies = [_beam_body(packed, q8[s], qn[s], ef, needs_norms, expand,
+                         bits=bits)
               for s in slices]
     state = [_entries_to_packed_beam(entry_ids[s], entry_d[s], ef)
              for s in slices]
@@ -301,15 +405,18 @@ def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
                              ef: int, needs_norms: bool, max_iters: int,
                              expand: int = 4, early_exit: bool = True,
                              init_pk=None, init_d=None,
-                             raw_state: bool = False):
+                             raw_state: bool = False,
+                             slots: int | None = None, bits: int = 8):
     """The packed layer-0 beam loop: per iteration, expand the E nearest
     unexpanded beam nodes and score their inlined neighbours (K1), dedup
     against the beam, merge.  Returns (ids, d, iters).
 
     early_exit=True stops when every beam is fully expanded (one host sync
     per iteration); False runs exactly max_iters.  init_pk/init_d resume
-    from a previous phase's raw (pk, d) state; raw_state=True returns it."""
-    step = _beam_body(packed, q8, qn, ef, needs_norms, expand)
+    from a previous phase's raw (pk, d) state; raw_state=True returns it.
+    slots / bits: K1's neighbours per node (`packed_slots`) and payload
+    width; q8 is int8[B, d_pad] for bits=8, bf16[B, 2·d_pad] q/s for 4."""
+    step = _beam_body(packed, q8, qn, ef, needs_norms, expand, slots, bits)
     if init_pk is not None:
         beam_pk, beam_d = init_pk, init_d
     else:
@@ -345,13 +452,19 @@ def knn_search_packed(
     fused: bool = False,
     interleave: int = 1,
 ):
-    """Alg 5 on the packed engine: seed-scan (or greedy) entry, packed int8
+    """Alg 5 on the packed engine: seed-scan (or greedy) entry, packed
     beam at layer 0, then an exact-f32 rerank of the top `rerank_k` beam
     entries.  Returns (ids i32[B, k], d f32[B, k]) ascending, -1/+inf
-    padded, tombstones filtered — the JAX package's contract."""
-    if bits != 8 or fused or deg_limit is not None:
-        raise NotImplementedError(
-            "packed engine: bits=4, fused and deg_limit are not ported yet")
+    padded, tombstones filtered — the JAX package's contract.  `bits` and
+    `fused` must be those the pack was made with; `deg_limit` rounds as
+    `packed_slots` says, and skips the interleaved loop, as in JAX."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    slots = packed_slots(packed, deg_limit, fused)
+    width = packed.d_pad * (1 if bits == 8 else 2)  # logical query width
+    if width != pack_d_pad(graph.dim):
+        raise ValueError(f"a {packed.d_pad}-byte payload row is not a "
+                         f"bits={bits} pack of {graph.dim}-d vectors")
     ef = max(ef, k)
     if max_iters is None:
         max_iters = max(64, (8 * ef) // max(1, expand))
@@ -366,9 +479,14 @@ def knn_search_packed(
     else:
         cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
         entry_ids, entry_d = cur[:, None], cur_d[:, None]
-    q8 = quantize_queries(q, packed.scale)
-    if packed.d_pad > q8.shape[1]:
-        q8 = torch.nn.functional.pad(q8, (0, packed.d_pad - q8.shape[1]))
+    if bits == 8:
+        q8 = quantize_queries(q, packed.scale)
+    else:
+        # fractional bf16 on the payload's s-grid (a true division, as in
+        # the JAX engine, where the scale is a traced value)
+        q8 = (q / packed.scale).to(torch.bfloat16)
+    if width > q8.shape[1]:
+        q8 = torch.nn.functional.pad(q8, (0, width - q8.shape[1]))
     if expand_schedule is not None:
         # phased beam, e.g. ((8, 2), (2, 26)): wide expansions fill the beam,
         # then it cruises narrow; expanded flags carry across phases
@@ -378,21 +496,22 @@ def knn_search_packed(
                 packed, q8, qn, entry_ids, entry_d, ef,
                 needs_norms=needs_norms, max_iters=mi_p, expand=e_p,
                 early_exit=False, init_pk=state[0], init_d=state[1],
-                raw_state=True,
+                raw_state=True, slots=slots, bits=bits,
             )[:2]
         ids, d = state[0] >> 1, state[1]
-    elif interleave > 1 and queries.shape[0] % interleave == 0:
+    elif (interleave > 1 and queries.shape[0] % interleave == 0
+          and deg_limit is None):
         # independent sub-batches, fixed max_iters (early_exit ignored)
         ids, d, _ = beam_search_layer_packed_duo(
             packed, q8, qn, entry_ids, entry_d, ef,
             needs_norms=needs_norms, max_iters=max_iters, expand=expand,
-            ways=interleave,
+            ways=interleave, bits=bits,
         )
     else:
         ids, d, _ = beam_search_layer_packed(
             packed, q8, qn, entry_ids, entry_d, ef,
             needs_norms=needs_norms, max_iters=max_iters, expand=expand,
-            early_exit=early_exit,
+            early_exit=early_exit, slots=slots, bits=bits,
         )
     # tombstone filter on the approx beam, keep top rerank_k live candidates
     dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)

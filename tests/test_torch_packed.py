@@ -116,12 +116,21 @@ class TestPackGraph:
             np.testing.assert_array_equal(back[f], getattr(tg, f).numpy())
 
     def test_off_path_options_raise(self, clustered_graphs):
-        _, _, tg = clustered_graphs
-        for kw in (dict(bits=4), dict(fused=True)):
-            with pytest.raises(NotImplementedError):
-                tpacked.pack_graph(tg, "l2", **kw)
-        with pytest.raises(ValueError):
-            tpacked.pack_graph(tg, "l2", bits=2)
+        """pack_graph's checks, where the JAX package raises ValueError:
+        bits other than 8 / 4, and a fused layout with deg > 32 or with
+        with_dist."""
+        _, jg, tg = clustered_graphs
+        wide = tg._replace(adj0=torch.cat([tg.adj0, tg.adj0[:, :10]], 1))
+        jwide = jg._replace(adj0=jnp.asarray(wide.adj0.numpy()))
+        for g, pack in ((tg, tpacked.pack_graph), (jg, jpacked.pack_graph)):
+            with pytest.raises(ValueError, match="bits"):
+                pack(g, "l2", bits=2)
+            with pytest.raises(ValueError, match="fused"):
+                pack(g, "l2", fused=True, with_dist=True)
+        for g, pack in ((wide, tpacked.pack_graph),
+                        (jwide, jpacked.pack_graph)):
+            with pytest.raises(ValueError, match="fused"):
+                pack(g, "l2", fused=True)
 
     @pytest.mark.parametrize("scale", [None, 0.5])
     def test_with_dist_equals_jax(self, clustered_graphs, scale):
@@ -214,10 +223,28 @@ class TestSearchParity:
                 ts.vecs.float().numpy(), np.asarray(js.vecs.astype(jnp.float32)))
 
     def test_off_path_options_raise(self, clustered_graphs):
+        """knn_search_packed's checks, each a ValueError: bits=2, bits=4
+        against an int8 pack (the port's own check: JAX scores such a pair
+        without complaint), deg_limit on a fused pack (JAX
+        `_packed_layout`), and a deg_limit whose whole
+        chunk rows hold no whole neighbours (JAX fails to reshape them:
+        d=768, deg=32 gives W=2048 of 768-byte neighbours)."""
         _, _, tg = clustered_graphs
-        tp = tpacked.pack_graph(tg, "l2")
         q = torch.zeros((8, 24))
-        for kw in (dict(bits=4), dict(fused=True), dict(deg_limit=8)):
-            with pytest.raises(NotImplementedError):
-                tpacked.knn_search_packed(tg, tp, q, k=5, ef=16,
-                                          metric="l2", **kw)
+        kw = dict(k=5, ef=16, metric="l2")
+        tp = tpacked.pack_graph(tg, "l2")
+        with pytest.raises(ValueError, match="bits"):
+            tpacked.knn_search_packed(tg, tp, q, bits=2, **kw)
+        with pytest.raises(ValueError, match="bits=4 pack"):
+            tpacked.knn_search_packed(tg, tp, q, bits=4, **kw)
+        fp = tpacked.pack_graph(tg, "l2", fused=True)
+        with pytest.raises(ValueError, match="fused"):
+            tpacked.knn_search_packed(tg, fp, q, fused=True, deg_limit=8,
+                                      **kw)
+        wide = tpacked.PackedGraph(
+            pay=torch.zeros((tg.n_cap, 32, 768), dtype=torch.int8),
+            meta=torch.zeros((tg.n_cap, 64), dtype=torch.int32),
+            scale=torch.tensor(1.0))
+        assert wide.chunk_w == 2048
+        with pytest.raises(ValueError, match="whole neighbours"):
+            tpacked.knn_search_packed(tg, wide, q, deg_limit=16, **kw)

@@ -142,6 +142,23 @@ class TestPackedScore:
         assert packed_score.launches == before
 
 
+def test_cpu_wrapper_options_are_plain(packs):
+    """slots and bits=4 on CPU tensors: the plain version, no launch."""
+    _, tp, nodes, q8, qn = packs
+    q16 = (q8.float() + 0.25).to(torch.bfloat16)
+    pay4 = tp.pay[:, :, :tp.d_pad // 2].contiguous()
+    before = packed_score.launches
+    for args in ((nodes, tp.meta, tp.pay, q8, qn, tp.scale, True, 3, 8),
+                 (nodes, tp.meta, pay4, q16, qn, tp.scale, False, None, 4),
+                 (nodes, tp.meta, pay4, q16, qn, tp.scale, True, 7, 4)):
+        a = packed_score(*args)
+        b = packed_score_plain(*args)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        slots = tp.deg if args[7] is None else args[7]
+        assert a[0].shape == (B, E * slots)
+    assert packed_score.launches == before
+
+
 class TestLaunchPlan:
     """The ring shape csrc/payload_score.cu is launched with."""
 
@@ -157,6 +174,29 @@ class TestLaunchPlan:
         assert p.stage_bytes >= item and p.stage_bytes % 128 == 0
         header = -(-p.warps * p.stages * 8 // 128) * 128
         assert p.smem_bytes == header + p.warps * p.stages * p.stage_bytes
+
+    @pytest.mark.parametrize("deg,d_pad,slots,bits", [
+        (32, 128, 16, 8), (32, 128, 1, 8), (33, 128, 5, 8), (32, 64, None, 4),
+        (32, 64, 16, 4), (16, 64, 1, 4), (32, 384, None, 4), (64, 512, 7, 4),
+    ])
+    def test_options_ring_fits(self, deg, d_pad, slots, bits):
+        """slots: only that prefix of the slab is staged (the meta row stays
+        whole); bits=4: d_pad stored bytes per row, a bf16 query row of
+        2·d_pad components (4·d_pad bytes)."""
+        p = launch_plan(deg, d_pad, True, slots, bits)
+        full = launch_plan(deg, d_pad, True, None, bits)
+        assert p.smem_bytes <= _lib.SMEM_LIMIT and 1 <= p.warps <= WARPS
+        q_bytes = d_pad if bits == 8 else 4 * d_pad
+        item = ((deg if slots is None else slots) * d_pad + q_bytes
+                + (8 * deg if p.meta_in_ring else 0))
+        assert p.stage_bytes == -(-item // 128) * 128
+        assert p.stage_bytes <= full.stage_bytes
+        assert p.meta_in_ring == (deg % 2 == 0)
+
+    def test_int4_main_shape(self):
+        # B=4096, E=2, deg=32, d=128: a 2 KB nibble slab, 256 B bf16 query
+        p = launch_plan(32, 64, True, None, 4)
+        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 2560)
 
     def test_main_shape_and_misaligned_meta(self):
         p = launch_plan(32, 128)

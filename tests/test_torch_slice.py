@@ -257,7 +257,7 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
     loaded = set(out.stdout.splitlines()[1].split())
     for m in ("io", "api", "models.build", "models.search", "models.packed",
-              "models.flat", "ops.bitset", "utils.profiling",
+              "models.refine", "models.flat", "ops.bitset", "utils.profiling",
               "bench.datasets", "bench.harness", "bench.__main__",
               "parallel", "parallel.sharded"):
         assert f"ocaml_hnsw_tpu_torch.{m}" in loaded, m
