@@ -160,6 +160,11 @@ F_REFINE_MI = (QUERY_KNOBS["max_iters"] * 5) // 4
 F_PAIRS, F_PAIR_WARMUP, F_PAIR_REPS = 10, 1, 2
 #: the classic engine's candidate compaction at M=16 (knn_query "auto")
 COMPACT_K = 96
+#: K2's width sweep (--kernels-only): vector against ring path, cold
+SWEEP_N, SWEEP_SHAPE = 96_000, (4096, 96)
+SWEEP_WIDTHS = (256, 384, 512, 768, 1024)
+SWEEP_HOT_N = 8192  # rows of the L2-resident table (25 MB at 768-d f32)
+RING_SHAPE_SWEEP = ((3, 4), (3, 8), (3, 16), (4, 4), (4, 8), (5, 2), (5, 4))
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
 # K1 must equal its plain version bit for bit (exact int32 dot, same
 # rounding in the epilogue)
@@ -258,6 +263,14 @@ def k2_cost(vec, ids, metric: str) -> tuple[int, int]:
     return nbytes, (3 if metric == "l2" else 2) * int(live.numel()) * d
 
 
+def k2_requested(vec, ids) -> int:
+    """Bytes of the rows one gather_dists call requests: every live (b, k)
+    fetches its row, whether or not another (b, k) fetched it (the bound
+    counts each distinct row once; the two differ by the ids' reuse)."""
+    row = vec.shape[1] * vec.element_size()
+    return int((ids >= 0).sum()) * row
+
+
 def timed(row: dict, kernel, plain, nbytes: int, ops: int, peak: float,
           flush) -> dict:
     ms = device_ms(kernel, flush)
@@ -271,10 +284,14 @@ def timed(row: dict, kernel, plain, nbytes: int, ops: int, peak: float,
 def fmt(row: dict) -> str:
     if "ms" not in row:
         return f"max |err| {row['max_abs_err']:.3e}"
+    req = ""
+    if "requested_bytes" in row:
+        req = (f"; rows requested {row['requested_bytes'] / 1e6:.1f} MB = "
+               f"{row['requested_bytes'] / row['ms'] / 1e9:.2f} TB/s")
     return (f"max |err| {row['max_abs_err']:.3e}; {row['bytes'] / 1e6:.1f} MB,"
             f" bound {row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}); "
             f"kernel {row['ms'] * 1e3:.1f} us = {row['share']:.0%} of bound;"
-            f" plain {row['plain_ms'] * 1e3:.1f} us")
+            f" plain {row['plain_ms'] * 1e3:.1f} us{req}")
 
 
 def k1_case(label: str, args, flush=None, time_it: bool = False) -> dict:
@@ -317,17 +334,19 @@ def k1_case(label: str, args, flush=None, time_it: bool = False) -> dict:
 
 
 def k2_case(label: str, vec, scales, q, ids, metric: str, flush=None,
-            time_it: bool = False, path: str | None = None) -> dict:
+            time_it: bool = False, path: str | None = None,
+            force: bool = False) -> dict:
     """gather_dists against its plain version within K2_RTOL / K2_ATOL;
-    `path` ("vector" / "generic") asserts which path the plan takes."""
-    plan = k2_mod.launch_plan(
+    `path` ("vector" / "ring" / "generic") asserts which path the plan
+    takes, or with `force` makes the plan take it."""
+    run_path = path if force else None
+    got = k2_mod.launch_plan(
         *ids.shape, vec.shape[1], vec.element_size(),
         vec.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
-        k2_mod._sm_count(vec.device) if vec.is_cuda else 132)
-    got = "generic" if plan.cpl == 0 else "vector"
+        k2_mod._sm_count(vec.device) if vec.is_cuda else 132, run_path).path
     if path is not None and got != path:
         raise AssertionError(f"K2 {label}: plan took the {got} path")
-    out = gather_dists(vec, scales, q, ids, metric)
+    out = gather_dists(vec, scales, q, ids, metric, run_path)
     ref = gather_dists_plain(vec, scales, q, ids, metric)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=K2_RTOL, atol=K2_ATOL)
@@ -338,12 +357,14 @@ def k2_case(label: str, vec, scales, q, ids, metric: str, flush=None,
                path=got, max_abs_err=err)
     if time_it:
         nbytes, ops = k2_cost(vec, ids, metric)
-        timed(row, lambda: gather_dists(vec, scales, q, ids, metric),
+        row["requested_bytes"] = k2_requested(vec, ids)
+        timed(row,
+              lambda: gather_dists(vec, scales, q, ids, metric, run_path),
               lambda: gather_dists_plain(vec, scales, q, ids, metric),
               nbytes, ops, F32_FLOPS_PER_S, flush)
     say(f"[K2 gather_dists] {label} B={ids.shape[0]} K={ids.shape[1]} "
-        f"D={vec.shape[1]} {row['dtype']} {metric} ({got} path): "
-        f"agree; {fmt(row)}")
+        f"D={vec.shape[1]} {row['dtype']} {metric} ({got} path"
+        f"{', forced' if force else ''}): agree; {fmt(row)}")
     return row
 
 
@@ -393,18 +414,22 @@ def metering(owner, name: str):
 
 
 def sum_launches(calls) -> dict:
-    return {k: sum(c["launches"][k] for c in calls)
-            for k in ("gather_dists", "packed_score")}
+    return {k: sum(c["launches"][k] for c in calls) for k in read_launches()}
 
 
 def reset_launches() -> None:
     gather_dists.launches = 0
+    gather_dists.launches_by_path.update(dict.fromkeys(k2_mod.PATHS, 0))
     packed_score.launches = 0
 
 
 def read_launches() -> dict:
+    """Launch counts: each kernel's, and K2's by path ("gather_dists/ring",
+    ...)."""
     return {"gather_dists": gather_dists.launches,
-            "packed_score": packed_score.launches}
+            "packed_score": packed_score.launches,
+            **{f"gather_dists/{p}": n
+               for p, n in gather_dists.launches_by_path.items()}}
 
 
 def require_launches(phase: str, launches: dict, kernels) -> None:
@@ -633,8 +658,9 @@ def check_k1_empty(scale) -> None:
 
 
 def check_k2_edges(x: torch.Tensor, gen) -> list[dict]:
-    """Odd B and K on the vector path for every dtype and metric, and the
-    generic path: bf16 D=100, misaligned bases, rows wider than 1024."""
+    """Odd B and K on the vector path for every dtype and metric, the
+    generic path (bf16 D=100, misaligned bases), and the ring path
+    (`check_k2_ring`)."""
     dev = x.device
     xn = x / torch.linalg.norm(x, dim=1, keepdim=True)
     n = x.shape[0]
@@ -667,22 +693,57 @@ def check_k2_edges(x: torch.Tensor, gen) -> list[dict]:
         vec, sc, _ = quantize_rows(x[:part], storage)
         rows.append(k2_case("base misaligned", misaligned(vec), sc, q,
                             ids_for(1000, 13, part), "l2", path="generic"))
-    wide = torch.from_numpy(
-        gen.standard_normal((20_000, 768)).astype(np.float32)).to(dev)
-    qw = queries(300, 768, False)
-    for storage in ("f32", "bf16", "int8"):
-        vec, sc, _ = quantize_rows(wide, storage)
-        rows.append(k2_case("D=768", vec, sc, qw, ids_for(300, 37, 20_000),
-                            "l2", path="vector"))
     tiny = torch.from_numpy(
         gen.standard_normal((5_000, 16)).astype(np.float32)).to(dev)
     vec, sc, _ = quantize_rows(tiny, "int8")
     rows.append(k2_case("int8 D=16 (a lane per row)", vec, sc,
                         queries(64, 16, False), ids_for(64, 45, 5_000), "l2",
                         path="vector"))
-    vec, sc, _ = quantize_rows(wide.repeat(1, 3)[:2_000], "f32")
-    rows.append(k2_case("D=2304", vec, sc, queries(50, 2304, False),
-                        ids_for(50, 9, 2_000), "l2", path="generic"))
+    rows += check_k2_ring(gen, ids_for, queries)
+    return rows
+
+
+def check_k2_ring(gen, ids_for, queries) -> list[dict]:
+    """The ring path at D=768 and D=2304 for every dtype, l2 and ip, on odd
+    B and K (ragged tasks and row groups) with -1 and repeated ids; one row
+    set taken by the vector path too; K=1, B=1 and every id -1; a ring
+    forced on a misaligned query raises."""
+    rows = []
+    for d, b, k, n in ((768, 301, 37, 20_000), (2304, 51, 9, 2_000)):
+        base = torch.from_numpy(
+            gen.standard_normal((n, d)).astype(np.float32)).to(DEV)
+        unit = base / torch.linalg.norm(base, dim=1, keepdim=True)
+        ids = ids_for(b, k, n)
+        ids[:, 2] = ids[:, 1]  # repeated ids in a task
+        ids[1::2, k - 1] = ids[1::2, 3]
+        for metric, rows_f in (("l2", base), ("ip", unit)):
+            q = queries(b, d, metric == "ip")
+            for storage in ("f32", "bf16", "int8"):
+                vec, sc, _ = quantize_rows(rows_f, storage)
+                rows.append(k2_case("odd B, K, repeated ids", vec, sc, q, ids,
+                                    metric, path="ring", force=True))
+                if d == 768 and metric == "l2":
+                    rows.append(k2_case("odd B, K, repeated ids", vec, sc, q,
+                                        ids, metric, path="vector",
+                                        force=True))
+        vec, sc, _ = quantize_rows(base, "f32")
+        q = queries(b, d, False)
+        rows.append(k2_case("K=1", vec, sc, q, ids[:, :1].contiguous(),
+                            "l2", path="ring", force=True))
+        rows.append(k2_case("B=1", vec, sc, q[:1], ids[:1], "l2",
+                            path="ring", force=True))
+        rows.append(k2_case("every id -1", vec, sc, q,
+                            torch.full_like(ids, -1), "l2", path="ring",
+                            force=True))
+        if d == 2304:  # wider than 1024 elements: the plan's own choice
+            rows.append(k2_case("unforced", vec, sc, q, ids, "l2",
+                                path="ring"))
+    try:
+        gather_dists(vec, sc, misaligned(q), ids, "l2", "ring")
+    except ValueError:
+        say("[K2 gather_dists] ring forced on a misaligned query: raises")
+    else:
+        raise AssertionError("K2: a ring forced on a misaligned query ran")
     return rows
 
 
@@ -773,6 +834,97 @@ def capture_knn_batch(x: torch.Tensor):
     return vec, scales, q, ids, metric
 
 
+def width_sweep(gen, flush) -> list[dict]:
+    """The vector and ring paths of K2 timed cold on the same inputs at
+    SWEEP_SHAPE, cosine, over SWEEP_N unit rows: f32 at each of
+    SWEEP_WIDTHS, bf16 and int8 at 768, and f32 768 with every id
+    distinct (b·k rows, no reuse) and over an L2-resident table, warm
+    (all reuse); then the ring's shapes of RING_SHAPE_SWEEP at f32 768,
+    cold and unique.  Prints each pair and the f32 crossing: the narrowest
+    row width from which the ring is at least as fast at every wider width
+    (RING_MIN_ROW_BYTES is set from it)."""
+    b, k = SWEEP_SHAPE
+    rows, pairs = [], []
+    cases = [("f32", d) for d in SWEEP_WIDTHS] + [("bf16", 768),
+                                                  ("int8", 768)]
+    for storage, d in cases:
+        g = torch.Generator(device=DEV).manual_seed(d)
+        x = torch.randn((SWEEP_N, d), device=DEV, generator=g)
+        vec, sc, _ = quantize_rows(x / torch.linalg.norm(x, dim=1,
+                                                         keepdim=True),
+                                   storage)
+        del x
+        q = torch.randn((b, d), device=DEV, generator=g)
+        q /= torch.linalg.norm(q, dim=1, keepdim=True)
+        ids = cold_ids(gen, b, k, SWEEP_N)
+        got = {p: k2_case("sweep", vec, sc, q, ids,
+                          "cosine", flush, time_it=True, path=p, force=True)
+               for p in ("vector", "ring")}
+        rows += got.values()
+        if (storage, d) == ("f32", 768):
+            wide768 = (vec, q, ids)
+        pairs.append(dict(dtype=storage, dim=d,
+                          row_bytes=d * vec.element_size(),
+                          vector_ms=got["vector"]["ms"],
+                          ring_ms=got["ring"]["ms"],
+                          bound_ms=got["ring"]["bound_ms"]))
+        del vec, sc
+    # no reuse: every id distinct, so the bound is the bytes requested
+    g = torch.Generator(device=DEV).manual_seed(1)
+    x = torch.randn((b * k, 768), device=DEV, generator=g)
+    x /= torch.linalg.norm(x, dim=1, keepdim=True)
+    q = x[:b].clone()
+    ids = torch.randperm(b * k, device=DEV, generator=g).to(
+        torch.int32).view(b, k)
+    unique = {p: k2_case("sweep unique ids", x, torch.ones(b * k, device=DEV),
+                         q, ids, "cosine", flush, time_it=True, path=p,
+                         force=True)
+              for p in ("vector", "ring")}
+    rows += unique.values()
+    # all reuse: a table that fits in L2 (25 MB), timed warm, so the rows
+    # come from L2 and the bytes requested show what L2 delivers
+    hot = x[:SWEEP_HOT_N]
+    hot_ids = torch.randint(0, SWEEP_HOT_N, (b, k), device=DEV,
+                            generator=g).to(torch.int32)
+    hot_ms = {p: k2_case("sweep L2-resident table, warm", hot,
+                         torch.ones(SWEEP_HOT_N, device=DEV), q, hot_ids,
+                         "cosine", None, time_it=True, path=p,
+                         force=True)["ms"]
+              for p in ("vector", "ring")}
+    # the ring's shape at 768-d f32: (lanes per row as log2, stages)
+    shapes = {}
+    keep = k2_mod.RING_SHAPES
+    try:
+        for shape in RING_SHAPE_SWEEP:
+            k2_mod.RING_SHAPES = (shape,)
+            k2_mod.launch_plan.cache_clear()
+            for tag, vec, qq, ii in (("unique", x, q, ids),
+                                     ("cold", *wide768)):
+                r = k2_case(f"sweep ring shape {shape} {tag}", vec,
+                            torch.ones(vec.shape[0], device=DEV), qq, ii,
+                            "cosine", flush, time_it=True, path="ring",
+                            force=True)
+                shapes[f"{shape} {tag}"] = r["ms"]
+    finally:
+        k2_mod.RING_SHAPES = keep
+        k2_mod.launch_plan.cache_clear()
+    del x, wide768
+    f32 = sorted((p for p in pairs if p["dtype"] == "f32"),
+                 key=lambda p: p["row_bytes"])
+    cross = None
+    for i, p in enumerate(f32):
+        if all(r["ring_ms"] <= r["vector_ms"] for r in f32[i:]):
+            cross = p["row_bytes"]
+            break
+    say("[K2 sweep] " + json.dumps(dict(
+        shape=[b, k], n=SWEEP_N, pairs=pairs, f32_crossing_row_bytes=cross,
+        ring_min_row_bytes=k2_mod.RING_MIN_ROW_BYTES,
+        unique_ids_f32_768={p: dict(ms=r["ms"], bound_ms=r["bound_ms"])
+                            for p, r in unique.items()},
+        l2_table_warm_ms=hot_ms, ring_shapes_ms=shapes)))
+    return rows
+
+
 def kernels_only(gen) -> int:
     """Edge checks plus cold timings on synthetic data (no index)."""
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
@@ -780,6 +932,7 @@ def kernels_only(gen) -> int:
     x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
                                    seed=7)).to(DEV)
     check_k2_edges(x, gen)
+    width_sweep(gen, flush)
     pay, meta = synthetic_packed(N, 32, 128, seed=100)
     scale = torch.tensor([0.02], device=DEV)
     for b in (4096, 8192):
@@ -1156,7 +1309,10 @@ def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
     n_warm = B_N // 2
     reset_launches()
     with metering(build_mod.BuildState, "add") as adds, \
-            metering(harness_mod, "knn_search") as searches:
+            metering(harness_mod, "knn_search") as searches, \
+            recording(search_mod, "dists_to_ids", keep=64, want=lambda a: (
+                not adds and tuple(a[5].shape) == (B_RS, COMPACT_K))) \
+            as warm_blocks:
         out = harness_mod.run_streaming_config(
             "laion-streaming", n=B_N, dim=B_DIM, metric="cosine",
             n_queries=N_QUERIES, M=M, ef_construction=B_EFC, round_size=B_RS,
@@ -1169,8 +1325,14 @@ def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
                              f"searches")
     warm_launches = sum_launches(adds[:1])
     ingest_launches = sum_launches(adds[1:])
-    require_launches("B warm", warm_launches, ["gather_dists"])
-    require_launches("B ingest", ingest_launches, ["gather_dists"])
+    # 768-d f32 rows: every K2 launch of the phase takes the ring path
+    require_launches("B warm", warm_launches,
+                     ["gather_dists", "gather_dists/ring"])
+    require_launches("B ingest", ingest_launches,
+                     ["gather_dists", "gather_dists/ring"])
+    # a late warm round's level-0 build block: 64 blocks before the end
+    build_call = warm_blocks[0]
+    del warm_blocks
     if warm_launches["packed_score"] or ingest_launches["packed_score"]:
         raise AssertionError(f"phase B: the packed build ran: warm "
                              f"{warm_launches}, ingest {ingest_launches}")
@@ -1179,7 +1341,8 @@ def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
     for row, call in zip(out["sweep"], timed):
         row["launches_per_batch"] = call["launches"]
         require_launches(f"B query {row['ef']}/{row['max_iters']}",
-                         call["launches"], ["gather_dists"])
+                         call["launches"],
+                         ["gather_dists", "gather_dists/ring"])
     if out["n"] != B_N or out["backend"] != DEV.type or not all(
             0.0 <= r["recall"] <= 1.0 and r["sustained_qps_during_ingest"] > 0
             for r in out["sweep"]):
@@ -1208,17 +1371,22 @@ def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
             f"{r['recall']:.4f}" for r in out["sweep"])
         + f"; {fmt_share(query_busy)} in a {B_QB}-query batch at "
         f"{knobs['ef']}/{knobs['max_iters']} (profiled); K2 launches warm "
-        f"{warm_launches['gather_dists']}, ingest "
-        f"{ingest_launches['gather_dists']} [{smi}]")
+        f"{warm_launches['gather_dists']} (ring "
+        f"{warm_launches['gather_dists/ring']}), ingest "
+        f"{ingest_launches['gather_dists']} (ring "
+        f"{ingest_launches['gather_dists/ring']}) [{smi}]")
     if out["sweep"][-1]["recall"] < B_FLOOR:
         raise AssertionError(f"phase B recall@10 {out['sweep'][-1]['recall']}"
                              f" < {B_FLOOR} at {B_SETTINGS[-1]}")
-    vec, sc, qq, ids, metric = k2_args(query_call)
-    rows = [k2_case(f"B query cold ({B_QB}, {COMPACT_K}) cosine", vec, sc,
-                    qq, cold_ids(gen, B_QB, COMPACT_K, B_N), metric, flush,
-                    time_it=True),
-            k2_case(f"B query real ({B_QB}, {COMPACT_K}) cosine", vec, sc,
-                    qq, ids, metric, flush, time_it=True)]
+    rows = []
+    for tag, call, b, n in (("query", query_call, B_QB, B_N),
+                            ("build", build_call, B_RS, n_warm)):
+        vec, sc, qq, ids, metric = k2_args(call)
+        rows += [k2_case(f"B {tag} cold ({b}, {COMPACT_K}) cosine", vec, sc,
+                         qq, cold_ids(gen, b, COMPACT_K, n), metric, flush,
+                         time_it=True, path="ring"),
+                 k2_case(f"B {tag} real ({b}, {COMPACT_K}) cosine", vec, sc,
+                         qq, ids, metric, flush, time_it=True, path="ring")]
     return res, rows
 
 
@@ -1812,8 +1980,12 @@ def main(argv: list[str]) -> int:
              max_abs_err=max(r["max_abs_err"] for r in k2_rows),
              **headline(k2_rows, "real rerank"), library_ms=None,
              library_note=NO_LIBRARY,
+             launches_by_path_by_phase={
+                 p: {path: c[f"gather_dists/{path}"] for path in k2_mod.PATHS}
+                 for p, c in by_phase.items() if "gather_dists/ring" in c},
              shapes=[{"case": r["case"], "shape": r["shape"],
-                      **{s: r[s] for s in shapes}}
+                      "path": r["path"], **{s: r[s] for s in shapes},
+                      "requested_bytes": r["requested_bytes"]}
                      for r in k2_rows if "ms" in r]),
     ]}
     print(json.dumps(record))

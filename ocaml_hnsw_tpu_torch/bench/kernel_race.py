@@ -7,8 +7,10 @@ with `git archive`).  Each checkout is timed in a process of its own, through
 its own wrappers (`packed_score`, `gather_dists`, built from its own
 `csrc/`), on identical inputs made on the device from fixed seeds, at the
 main path's shapes: K1 at B = 4096 and 8192 (E = 2, deg = 32, d_pad = 128,
-random nodes over a 1M-node payload) and K2 f32 l2 at (8192, 32),
-(8192, 8) and (1024, 97) over 1M x 128 rows.  The processes run in turns
+random nodes over a 1M-node payload), K2 f32 l2 at (8192, 32),
+(8192, 8) and (1024, 97) over 1M x 128 rows, and K2 f32 cosine at phase B's
+query and build blocks, (4096, 96) and (2048, 96), over 96k x 768 unit rows
+(laion-streaming's width).  The processes run in turns
 (other, this, this, other) so that drift of the card shows; a result is the
 median over both turns of each checkout.
 
@@ -44,6 +46,8 @@ SPIN_CYCLES = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K1_SHAPES = (4096, 8192)
 K2_SHAPES = ((8192, 32), (8192, 8), (1024, 97))
+WIDE_ROWS, WIDE_DIM = 96_000, 768
+K2_WIDE_SHAPES = ((4096, 96), (2048, 96))
 MODES = ("warm", "read", "write", "enqueue")
 THIS = Path(__file__).resolve().parents[2]
 
@@ -128,6 +132,22 @@ def _worker(tree: str, reps: int) -> None:
                             mode=mode, bytes=nbytes,
                             ms=time_ms(lambda: gather_dists(rows, ones, q, ids,
                                                             "l2"), mode)))
+    del rows, ones
+    rows = torch.randn((WIDE_ROWS, WIDE_DIM), device=dev, generator=g)
+    rows /= torch.linalg.norm(rows, dim=1, keepdim=True)
+    ones = torch.ones(WIDE_ROWS, device=dev)
+    for b, k in K2_WIDE_SHAPES:
+        ids = torch.randint(0, WIDE_ROWS, (b, k), dtype=torch.int32,
+                            device=dev, generator=g)
+        q = torch.randn((b, WIDE_DIM), device=dev, generator=g)
+        q /= torch.linalg.norm(q, dim=1, keepdim=True)
+        nbytes = (int(torch.unique(ids).numel()) * WIDE_DIM * 4
+                  + b * WIDE_DIM * 4 + b * k * 8)
+        for mode in MODES:
+            out.append(dict(kernel="gather_dists cosine",
+                            shape=[b, k, WIDE_DIM], mode=mode, bytes=nbytes,
+                            ms=time_ms(lambda: gather_dists(
+                                rows, ones, q, ids, "cosine"), mode)))
     print(json.dumps(out))
 
 

@@ -72,60 +72,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ring.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 4;  // per block
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Global -> shared bulk copy; completion counts `bytes` on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__host__ __device__ constexpr int header_bytes(int barriers) {
-  return (barriers * 8 + 127) / 128 * 128;  // one mbarrier per stage
-}
 
 struct Item {  // where the copies of this warp's items come from
   const int8_t* pay;
@@ -261,7 +212,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
                 q_bytes, E,  meta_in_ring, stage_bytes, lo};
 
   if (lane < stages) mbar_init(&full[lane], 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  mbar_init_fence();
   __syncwarp();
   // node ids of items [32g, 32g + 32) and of the next group
   int cur = lane < count ? nodes[lo + lane] : -1;
@@ -336,7 +287,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
                                  j & 31);
       if (lane == 0) {
         // order this warp's reads of the stage before the async-proxy write
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        async_proxy_fence();
         issue(it, ring, full, stages, j, nj);
       }
     }

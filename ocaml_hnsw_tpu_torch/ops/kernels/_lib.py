@@ -29,8 +29,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: c_void_p, so 64-bit addresses are not cut to ints)
 _SIGNATURES = {
     "ohnsw_gather_dists": [_vp, _int, _vp, _vp, _vp, _vp,
-                           _int, _int, _int, _int,
-                           _int, _int, _int, _int, _vp],
+                           _int, _int, _int, _int, _int, _int,
+                           _int, _int, _int, _int, _int, _int, _vp],
     "ohnsw_packed_score": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                            _int, _int, _int, _int, _int, _int, _int,
                            _int, _int, _int, _int, _int, _vp],

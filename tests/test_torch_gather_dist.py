@@ -19,7 +19,8 @@ from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
 from ocaml_hnsw_tpu_torch.ops.distance import dists_to_ids
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
-    gather_dists, gather_dists_plain, launch_plan,
+    PATHS, RING_MIN_ROW_BYTES, RING_WARPS, gather_dists, gather_dists_plain,
+    launch_plan, ring_smem,
 )
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 
@@ -80,6 +81,36 @@ class TestAgainstDistsToIds:
         assert torch.equal(gather_dists(*args), gather_dists_plain(*args))
         assert gather_dists.launches == before  # no kernel ran
 
+    @pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+    def test_plain_matches_jax_at_768(self, storage):
+        """Phase B's width (laion, cosine): the plain version, which the
+        kernel's ring path is held to on the card, equals JAX's
+        dists_to_ids."""
+        vecs, ids, q = _inputs(5, 64, 768, 3, 5)
+        vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        jrows, jscales, jnorms = jax_quantize_rows(jnp.asarray(vecs), storage)
+        ref = np.asarray(jax_dists_to_ids(
+            jrows, jscales, jnorms, jnp.asarray(q), jnp.zeros(3),
+            jnp.asarray(ids), "cosine"))
+        rows, scales, _ = quantize_rows(torch.from_numpy(vecs), storage)
+        out = gather_dists_plain(rows, scales, torch.from_numpy(q),
+                                 torch.from_numpy(ids), "cosine")
+        np.testing.assert_array_equal(np.isinf(out.numpy()), ids < 0)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+    def test_cpu_wrapper_counts_no_path(self):
+        """A forced path on CPU tensors still runs the plain version, and no
+        path's launch count moves."""
+        vecs, ids, q = _inputs(6, 100, 768, 4, 8)
+        args = (torch.from_numpy(vecs), torch.ones(100), torch.from_numpy(q),
+                torch.from_numpy(ids), "cosine")
+        before = dict(gather_dists.launches_by_path)
+        assert set(before) == set(PATHS) == {"vector", "ring", "generic"}
+        assert torch.equal(gather_dists(*args, path="ring"),
+                           gather_dists_plain(*args))
+        assert gather_dists.launches_by_path == before
+
     def test_registered_metric_on_cpu(self):
         from ocaml_hnsw_tpu_torch.ops import metrics
 
@@ -130,27 +161,68 @@ class TestAgainstDistsToIds:
 class TestLaunchPlan:
     """How csrc/gather_dist.cu splits a call into warp tasks and rows."""
 
-    @pytest.mark.parametrize("dim,itemsize,aligned,vector", [
-        (128, 4, True, True), (128, 2, True, True), (128, 1, True, True),
-        (100, 4, True, True), (96, 1, True, True), (768, 4, True, True),
-        (1024, 1, True, True), (16, 1, True, True),
-        (100, 2, True, False), (100, 1, True, False), (128, 4, False, False),
-        (2048, 4, True, False)])
+    @pytest.mark.parametrize("dim,itemsize,aligned,path", [
+        (128, 4, True, "vector"), (128, 2, True, "vector"),
+        (128, 1, True, "vector"), (100, 4, True, "vector"),
+        (96, 1, True, "vector"), (768, 4, True, "ring"),
+        (1024, 1, True, "vector"), (16, 1, True, "vector"),
+        (100, 2, True, "generic"), (100, 1, True, "generic"),
+        (128, 4, False, "generic"), (2048, 4, True, "ring"),
+        (2304, 4, True, "ring"), (2304, 1, True, "ring"),
+        (512, 4, True, "ring"), (384, 4, True, "vector"),
+        (768, 4, False, "generic"), (65536, 4, True, "generic")])
     def test_path_from_width_and_alignment(self, dim, itemsize, aligned,
-                                           vector):
+                                           path):
         p = launch_plan(1024, 32, dim, itemsize, aligned)
-        assert (p.cpl > 0) == vector
-        if vector:
+        assert p.path == path
+        if path == "vector":
             chunks = dim * itemsize // 16
             lanes = 1 << p.lpr_log2
             assert lanes * p.cpl >= chunks  # every chunk has a lane
             assert lanes == 32 or lanes >= chunks
             assert p.cpl * 16 // itemsize <= 32  # query floats per lane
+        if path == "ring":
+            assert dim * itemsize >= RING_MIN_ROW_BYTES or dim > 1024
+            assert p.rows_per_iteration <= p.stages  # a group fits the ring
+            assert p.lpr_log2 >= 3  # 8 lanes of a quarter-warp on one row
+
+    @pytest.mark.parametrize("itemsize", [4, 2, 1])
+    def test_ring_smem_fits(self, itemsize):
+        """Every 16-byte-multiple width up to 4096 elements has a ring whose
+        block (stages x row bytes + query bytes per warp, and the
+        mbarriers) fits in the shared memory one block may use."""
+        step = 16 // itemsize
+        for dim in range(step, 4097, step):
+            p = launch_plan(4096, 96, dim, itemsize, True, path="ring")
+            assert p.smem_bytes == ring_smem(dim, itemsize, p.stages,
+                                             p.warps)
+            barriers = -(-p.warps * (p.stages + 1) * 8 // 128) * 128
+            assert p.smem_bytes == barriers + p.warps * (
+                p.stages * dim * itemsize + 4 * dim)
+            assert p.smem_bytes <= _lib.SMEM_LIMIT
+            assert 1 <= p.warps <= RING_WARPS
+            assert 32 >> p.lpr_log2 <= p.stages <= 32
+
+    @pytest.mark.parametrize("dim,itemsize,aligned,path", [
+        (768, 4, False, "ring"), (100, 2, True, "ring"),
+        (2304, 4, True, "vector"), (128, 4, False, "vector"),
+        (128, 4, True, "bogus")])
+    def test_forced_path_the_shape_cannot_take_raises(self, dim, itemsize,
+                                                      aligned, path):
+        with pytest.raises(ValueError):
+            launch_plan(64, 9, dim, itemsize, aligned, path=path)
+
+    @pytest.mark.parametrize("path", ["vector", "ring", "generic"])
+    def test_forced_path_is_taken(self, path):
+        p = launch_plan(4096, 96, 768, 4, True, path=path)
+        assert p.path == path
+        assert 1 <= p.kc <= 32 and p.kc * p.nchunks >= 96
 
     @pytest.mark.parametrize("b,k", [(1, 1), (1000, 13), (8192, 8),
                                      (8192, 32), (1024, 97), (7, 33),
                                      (3, 200)])
-    @pytest.mark.parametrize("dim,itemsize", [(128, 4), (128, 1), (100, 2)])
+    @pytest.mark.parametrize("dim,itemsize", [(128, 4), (128, 1), (100, 2),
+                                              (768, 4)])
     def test_tasks_cover_ragged_k(self, b, k, dim, itemsize):
         p = launch_plan(b, k, dim, itemsize, True)
         assert 1 <= p.kc <= 32  # one id per lane
