@@ -10,6 +10,9 @@ their results against exact ground truth computed on the card:
      cosine), depth cut to 96k rows, through the port's
      `run_streaming_config`: a warm add, then 10 ingest steps each followed
      by one 4096-query batch per (ef, max_iters) setting;
+  B8. the same at bench.py `laion5m-streaming`'s memory plan (int8 rows in
+     the graph from a bf16 source, round_size 1024), depth cut from 5M to
+     96k rows: K2 on int8 rows in every add and query batch;
   main. the SIFT1M main path (1M x 128-d, L2, M=16): `Index.add_items`
      (bulk build) and `Index.knn_query` (packed engine);
   C. resize_index and a 50k-row add on top of that bulk-built index (the
@@ -39,6 +42,7 @@ their results against exact ground truth computed on the card:
                                           # synthetic data, no index
     python3 chip_smoke.py --phase-f       # kernel checks, the main path's
                                           # build and queries, phase F, stop
+    python3 chip_smoke.py --phase-b8      # build, then phase B8 alone, stop
     python3 chip_smoke.py --profile-dir DIR  # also write the profiled
                                              # windows' op tables to DIR
 
@@ -57,12 +61,13 @@ it touches read once, every output written once) over 3.35 TB/s, or its
 operations over the peak rate for their type if that is longer.
 
 The kernels are also held and timed at the other paths' shapes, on inputs
-captured there: K2 on a phase-A build round's candidate block, on a
-phase-B query batch's and on the flat engines' rerank blocks of D1 and D2,
-on phase E's level-0 build block and per-shard rerank, K1 on a phase-C
-construction beam step, on a phase-E shard's query beam step and at
-phase F's variants (`slots` on a deg_limit step, `bits=4`, the refined
-deg-16 payload; K2 on refine's candidate block).  Ground
+captured there: K2 on a phase-A build round's candidate block, on the
+phase-B and phase-B8 query and build blocks, on the flat engines' rerank
+blocks of D1 and D2, on phase E's level-0 build block and per-shard
+rerank, K1 on a phase-C construction beam step, on a phase-E shard's query
+beam step and at phase F's variants (`slots` on a deg_limit step,
+`bits=4`, the refined deg-16 payload; K2 on refine's candidate block).
+Ground
 truth everywhere is the harness's `device_ground_truth` (exact f32 on the
 card).  Launch counters are zeroed before each phase and read after it; a
 phase whose path runs a kernel fails if that kernel did not launch.
@@ -94,6 +99,9 @@ from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex, Index
 from ocaml_hnsw_tpu_torch.bench import harness as harness_mod
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
 from ocaml_hnsw_tpu_torch.bench.harness import device_ground_truth, recall_of
+from ocaml_hnsw_tpu_torch.bench.kernel_race import (
+    CONVERSIONS, sass_op_counts,
+)
 from ocaml_hnsw_tpu_torch.models import build as build_mod
 from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
 from ocaml_hnsw_tpu_torch.models import flat as flat_mod
@@ -108,7 +116,7 @@ from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
     nibble_unpack, packed_score, packed_score_plain,
 )
 from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
-from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
+from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows, storage_dtype
 from ocaml_hnsw_tpu_torch.parallel import ShardedIndex
 from ocaml_hnsw_tpu_torch.parallel.sharded import make_mesh
 from ocaml_hnsw_tpu_torch.utils.profiling import search_stats
@@ -123,11 +131,18 @@ RECALL_FLOOR = 0.90
 #: phase A: bench.py random10k (BASELINE config 1)
 A_N, A_DIM, A_M, A_EFC, A_RS = 10_000, 128, 16, 64, 512
 A_EF, A_ADD, A_FLOOR = 64, 1_000, 0.95
-#: phase B: bench.py laion-streaming shapes (bench/harness.py
-#: run_streaming_config), depth cut from 1M to 96k rows
-B_N, B_DIM, B_EFC, B_RS, B_QB, B_STEPS = 96_000, 768, 200, 2048, 4096, 10
+#: phases B and B8: bench.py's streaming configs (bench/harness.py
+#: run_streaming_config), 768-d cosine, depth cut to 96k rows
+B_N, B_DIM, B_EFC, B_QB, B_STEPS = 96_000, 768, 200, 4096, 10
 B_SETTINGS = ((96, 16), (128, 24))
 B_FLOOR = 0.90  # at (128, 24)
+#: tag: (config, graph rows, source dtype, round_size, the K2 path of its
+#: rows).  B: laion-streaming (cut from 1M), f32 rows; B8: laion5m-
+#: streaming's memory plan (cut from 5M), int8 rows from a bf16 source
+STREAM_PHASES = {
+    "B": ("laion-streaming", "f32", "f32", 2048, "ring"),
+    "B8": ("laion5m-streaming", "int8", "bf16", 1024, "vector"),
+}
 #: phase C: resize + add on top of the main path's bulk-built index
 C_MAX, C_ADD, C_FLOOR = 1_050_000, 50_000, 0.90
 #: phase D1: bench.py glove1m, full scale; D2: bench.py deep10m's flat
@@ -163,9 +178,15 @@ COMPACT_K = 96
 #: K2's width sweep (--kernels-only): vector against ring path, cold
 SWEEP_N, SWEEP_SHAPE = 96_000, (4096, 96)
 SWEEP_WIDTHS = (256, 384, 512, 768, 1024)
+SWEEP_INT8_WIDTHS = (128, 768, 2304)
+#: (storage, D, (B, K), metric, rows): deep10m's int8 rows at the flat
+#: rerank's shape, over 1M rows (96 MB: more than L2)
+SWEEP_INT8_96 = ("int8", 96, (8192, 32), "l2", 1_000_000)
 SWEEP_HOT_N = 8192  # rows of the L2-resident table (25 MB at 768-d f32)
 RING_SHAPE_SWEEP = ((3, 4), (3, 8), (3, 16), (4, 4), (4, 8), (5, 2), (5, 4))
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
+#: per-row scales of the int8 rows holding every value (check_k2_int8_values)
+INT8_EDGE_SCALES = (0.0, 1e-30, 1e30, 0.01, 1.0)
 # K1 must equal its plain version bit for bit (exact int32 dot, same
 # rounding in the epilogue)
 
@@ -391,7 +412,7 @@ def recording(module, name: str, want=None, keep: int | None = None):
 def metering(owner, name: str):
     """Replace `owner.name` by a pass-through that notes the kernel launches
     of every call (the counters read before and after it) and keeps the
-    arguments of the last call only."""
+    arguments and the result of the last call only."""
     calls = []
     real = getattr(owner, name)
 
@@ -400,10 +421,10 @@ def metering(owner, name: str):
         out = real(*args, **kwargs)
         after = read_launches()
         if calls:
-            calls[-1].pop("args")
-            calls[-1].pop("kwargs")
+            for key in ("args", "kwargs", "result"):
+                calls[-1].pop(key)
         calls.append(dict(launches={k: after[k] - before[k] for k in after},
-                          args=args, kwargs=kwargs))
+                          args=args, kwargs=kwargs, result=out))
         return out
 
     setattr(owner, name, metered)
@@ -419,17 +440,21 @@ def sum_launches(calls) -> dict:
 
 def reset_launches() -> None:
     gather_dists.launches = 0
-    gather_dists.launches_by_path.update(dict.fromkeys(k2_mod.PATHS, 0))
+    for counts in (gather_dists.launches_by_path,
+                   gather_dists.launches_by_dtype):
+        counts.update(dict.fromkeys(counts, 0))
     packed_score.launches = 0
 
 
 def read_launches() -> dict:
     """Launch counts: each kernel's, and K2's by path ("gather_dists/ring",
-    ...)."""
+    ...) and by row dtype ("gather_dists/int8", ...)."""
     return {"gather_dists": gather_dists.launches,
             "packed_score": packed_score.launches,
             **{f"gather_dists/{p}": n
-               for p, n in gather_dists.launches_by_path.items()}}
+               for p, n in gather_dists.launches_by_path.items()},
+            **{f"gather_dists/{d}": n
+               for d, n in gather_dists.launches_by_dtype.items()}}
 
 
 def require_launches(phase: str, launches: dict, kernels) -> None:
@@ -529,6 +554,21 @@ def phase_build_kernels() -> None:
     for name, (_, regs, spill) in zip(names, kernels):
         name = name.replace("(anonymous namespace)::", "").split("(")[0]
         say(f"[build] {name}: {regs}; {spill}")
+    # int -> float conversion instructions per kernel (cuobjdump -sass).
+    # Every kernel keeps a few outside its loops (integer division by way
+    # of a float reciprocal, K1's epilogue); K2 widens int8 rows by integer
+    # ops, so its int8 vector and ring kernels may have no more than their
+    # bf16 twins, which convert nothing per element
+    sass = sass_op_counts(path)
+    for kernel, counts in sass.items():
+        say(f"[build] sass {kernel}: {json.dumps(counts)}")
+        if kernel.startswith(("gather_vec_kernel<signed char",
+                              "gather_ring_kernel<signed char")):
+            twin = sass[kernel.replace("signed char, true",
+                                       "__nv_bfloat16, false")]
+            if any(counts[op] > twin[op] for op in CONVERSIONS):
+                raise AssertionError(f"{kernel}: int->float conversions "
+                                     f"{counts}, its bf16 twin {twin}")
 
 
 # ------------------------------------------------------------ edge cases
@@ -622,8 +662,22 @@ def check_k1_edges(gen) -> list[dict]:
 def check_k1_int4(scale, gen) -> list[dict]:
     """bits=4 at d=100 (64 stored bytes, the components past 100 zero in
     payload and query, as a pack leaves them) and d=768 (384 bytes: the
-    generic path), with and without slots, l2 and ip."""
+    generic path), with and without slots, l2 and ip; and at d=128 on slabs
+    that each hold every byte (all 256 nibble pairs)."""
     rows = []
+    n, deg, stored = 20_000, 32, 64
+    pay, meta = synthetic_packed(n, deg, stored, seed=256)
+    every = np.tile(np.arange(256, dtype=np.uint8), deg * stored // 256)
+    pay.copy_(torch.from_numpy(np.stack([gen.permutation(every)
+                                         for _ in range(n)]).view(np.int8)
+                               .reshape(n, deg, stored)))
+    nodes, q16, qn = k1_inputs(n, 1000, 2, stored, gen, bits=4)
+    for needs_norms in (True, False):
+        rows.append(k1_case(f"bits=4 every nibble pair "
+                            f"{'l2' if needs_norms else 'ip'}",
+                            (nodes, meta, pay, q16, qn, scale, needs_norms,
+                             None, 4)))
+    del pay, meta
     for label, n, deg, d, b in (("bits=4 d=100", 50_000, 32, 100, 2000),
                                 ("bits=4 d=768", 20_000, 32, 768, 500),
                                 ("bits=4 deg=33 d=128", 20_000, 33, 128, 300)):
@@ -700,6 +754,42 @@ def check_k2_edges(x: torch.Tensor, gen) -> list[dict]:
                         queries(64, 16, False), ids_for(64, 45, 5_000), "l2",
                         path="vector"))
     rows += check_k2_ring(gen, ids_for, queries)
+    rows += check_k2_int8_values(gen, ids_for)
+    return rows
+
+
+def check_k2_int8_values(gen, ids_for) -> list[dict]:
+    """int8 rows that each hold every value -128..127 (quantize_rows never
+    stores -128), per-row scales cycling through INT8_EDGE_SCALES, on every
+    path: the vector path (forced) at D=768, the ring (forced) at D=2304,
+    the generic path on a misaligned base.  l2 against random queries (at
+    1e30 every distance overflows to +inf, in both versions alike); ip
+    against one-hot queries, so each distance is one element times its
+    scale, with no sum whose order could differ: a wrong element at the
+    hot position shows far outside the tolerance."""
+    rows = []
+    for d, b, k, n, path, force in (
+            (768, 301, 37, 3_000, "vector", True),
+            (2304, 51, 9, 2_000, "ring", True),
+            (768, 301, 37, 3_000, "generic", False)):
+        vals = np.tile(np.arange(-128, 128, dtype=np.int8), d // 256)
+        vec = torch.from_numpy(np.stack([gen.permutation(vals)
+                                         for _ in range(n)])).to(DEV)
+        sc = torch.tensor(INT8_EDGE_SCALES, dtype=torch.float32,
+                          device=DEV).repeat(-(-n // len(INT8_EDGE_SCALES)))
+        sc = sc[:n].contiguous()
+        if path == "generic":
+            vec = misaligned(vec)
+        ids = ids_for(b, k, n)
+        q = torch.from_numpy(gen.standard_normal((b, d)).astype(
+            np.float32)).to(DEV)
+        hot = torch.zeros((b, d), device=DEV)
+        hot[torch.arange(b, device=DEV),
+            torch.from_numpy(gen.integers(0, d, b)).to(DEV)] = 0.5
+        for metric, qq in (("l2", q), ("ip", hot)):
+            rows.append(k2_case(f"int8 every value, scales "
+                                f"{INT8_EDGE_SCALES}", vec, sc, qq, ids,
+                                metric, path=path, force=force))
     return rows
 
 
@@ -835,39 +925,53 @@ def capture_knn_batch(x: torch.Tensor):
 
 
 def width_sweep(gen, flush) -> list[dict]:
-    """The vector and ring paths of K2 timed cold on the same inputs at
-    SWEEP_SHAPE, cosine, over SWEEP_N unit rows: f32 at each of
-    SWEEP_WIDTHS, bf16 and int8 at 768, and f32 768 with every id
-    distinct (b·k rows, no reuse) and over an L2-resident table, warm
-    (all reuse); then the ring's shapes of RING_SHAPE_SWEEP at f32 768,
-    cold and unique.  Prints each pair and the f32 crossing: the narrowest
-    row width from which the ring is at least as fast at every wider width
-    (RING_MIN_ROW_BYTES is set from it)."""
+    """The vector and ring paths of K2 timed cold on the same inputs (each
+    path the shape can take): at SWEEP_SHAPE, cosine, over SWEEP_N unit
+    rows, f32 at each of SWEEP_WIDTHS, bf16 at 768 and int8 at each of
+    SWEEP_INT8_WIDTHS; int8 at deep10m's D=96 at SWEEP_INT8_96; f32 768
+    with every id distinct (b·k rows, no reuse) and over an L2-resident
+    table, warm (all reuse); then the ring's shapes of RING_SHAPE_SWEEP at
+    f32 768, cold and unique.  Prints each pair and, for f32 and for int8,
+    the crossing: the narrowest row width from which the ring is at least
+    as fast at every wider width both paths take (RING_MIN_ROW_BYTES is
+    set from the f32 one)."""
     b, k = SWEEP_SHAPE
     rows, pairs = [], []
-    cases = [("f32", d) for d in SWEEP_WIDTHS] + [("bf16", 768),
-                                                  ("int8", 768)]
-    for storage, d in cases:
+    cases = ([("f32", d, SWEEP_SHAPE, "cosine", SWEEP_N)
+              for d in SWEEP_WIDTHS] + [("bf16", 768, SWEEP_SHAPE, "cosine",
+                                         SWEEP_N)]
+             + [("int8", d, SWEEP_SHAPE, "cosine", SWEEP_N)
+                for d in SWEEP_INT8_WIDTHS] + [SWEEP_INT8_96])
+    for storage, d, (cb, ck), metric, n in cases:
         g = torch.Generator(device=DEV).manual_seed(d)
-        x = torch.randn((SWEEP_N, d), device=DEV, generator=g)
-        vec, sc, _ = quantize_rows(x / torch.linalg.norm(x, dim=1,
-                                                         keepdim=True),
-                                   storage)
+        x = torch.randn((n, d), device=DEV, generator=g)
+        if metric == "cosine":
+            x /= torch.linalg.norm(x, dim=1, keepdim=True)
+        vec, sc, _ = quantize_rows(x, storage)
         del x
-        q = torch.randn((b, d), device=DEV, generator=g)
-        q /= torch.linalg.norm(q, dim=1, keepdim=True)
-        ids = cold_ids(gen, b, k, SWEEP_N)
-        got = {p: k2_case("sweep", vec, sc, q, ids,
-                          "cosine", flush, time_it=True, path=p, force=True)
-               for p in ("vector", "ring")}
+        q = torch.randn((cb, d), device=DEV, generator=g)
+        if metric == "cosine":
+            q /= torch.linalg.norm(q, dim=1, keepdim=True)
+        ids = cold_ids(gen, cb, ck, n)
+        got = {}
+        for p in ("vector", "ring"):
+            try:
+                k2_mod.launch_plan(cb, ck, d, vec.element_size(), True,
+                                   path=p)
+            except ValueError:
+                continue  # a path this width cannot take
+            got[p] = k2_case("sweep", vec, sc, q, ids, metric, flush,
+                             time_it=True, path=p, force=True)
         rows += got.values()
         if (storage, d) == ("f32", 768):
             wide768 = (vec, q, ids)
-        pairs.append(dict(dtype=storage, dim=d,
+        pairs.append(dict(dtype=storage, dim=d, shape=[cb, ck], metric=metric,
                           row_bytes=d * vec.element_size(),
-                          vector_ms=got["vector"]["ms"],
-                          ring_ms=got["ring"]["ms"],
-                          bound_ms=got["ring"]["bound_ms"]))
+                          plan=k2_mod.launch_plan(cb, ck, d,
+                                                  vec.element_size(),
+                                                  True).path,
+                          **{f"{p}_ms": r["ms"] for p, r in got.items()},
+                          bound_ms=next(iter(got.values()))["bound_ms"]))
         del vec, sc
     # no reuse: every id distinct, so the bound is the bytes requested
     g = torch.Generator(device=DEV).manual_seed(1)
@@ -909,15 +1013,18 @@ def width_sweep(gen, flush) -> list[dict]:
         k2_mod.RING_SHAPES = keep
         k2_mod.launch_plan.cache_clear()
     del x, wide768
-    f32 = sorted((p for p in pairs if p["dtype"] == "f32"),
-                 key=lambda p: p["row_bytes"])
-    cross = None
-    for i, p in enumerate(f32):
-        if all(r["ring_ms"] <= r["vector_ms"] for r in f32[i:]):
-            cross = p["row_bytes"]
-            break
+    cross = {}
+    for dtype in ("f32", "int8"):
+        both = sorted((p for p in pairs if p["dtype"] == dtype
+                       and "vector_ms" in p and "ring_ms" in p),
+                      key=lambda p: p["row_bytes"])
+        cross[dtype] = next((p["row_bytes"] for i, p in enumerate(both)
+                             if all(r["ring_ms"] <= r["vector_ms"]
+                                    for r in both[i:])), None)
     say("[K2 sweep] " + json.dumps(dict(
-        shape=[b, k], n=SWEEP_N, pairs=pairs, f32_crossing_row_bytes=cross,
+        shape=[b, k], n=SWEEP_N, pairs=pairs,
+        f32_crossing_row_bytes=cross["f32"],
+        int8_crossing_row_bytes=cross["int8"],
         ring_min_row_bytes=k2_mod.RING_MIN_ROW_BYTES,
         unique_ids_f32_768={p: dict(ms=r["ms"], bound_ms=r["bound_ms"])
                             for p, r in unique.items()},
@@ -1299,57 +1406,82 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
     return out, rows
 
 
-# ------------------------------------------- phase B: streaming ingest
-def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
-    """laion-streaming shapes at 96k rows through the port's
-    `run_streaming_config`: warm add, 10 ingest steps, one timed 4096-query
-    batch per setting after each (the first step's batch excluded from the
-    sustained QPS).  Every add and every query batch is metered for its
-    kernel launches."""
+# ------------------------------------ phases B and B8: streaming ingest
+def phase_stream(tag: str, config: str, storage: str, data_dtype: str,
+                 round_size: int, k2_path: str, smi: str, flush,
+                 gen) -> tuple[dict, list]:
+    """`config`'s shapes (768-d cosine) at B_N rows through the port's
+    `run_streaming_config` with the memory plan `storage` (the graph's
+    rows) / `data_dtype` (the source) and `round_size`: warm add, B_STEPS
+    ingest steps, one timed B_QB-query batch per setting after each (the
+    first step's batch excluded from the sustained QPS).  Every add and
+    every query batch is metered: each must launch K2 on `storage` rows by
+    `k2_path`, and none K1 (the index stays on the classic engine).  Then
+    K2 is held and timed at the phase's query and level-0 build blocks."""
     n_warm = B_N // 2
+    need = ["gather_dists", f"gather_dists/{k2_path}",
+            f"gather_dists/{storage}"]
     reset_launches()
-    with metering(build_mod.BuildState, "add") as adds, \
+    with metering(harness_mod.datasets, "clustered_device") as made, \
+            metering(build_mod.BuildState, "add") as adds, \
             metering(harness_mod, "knn_search") as searches, \
             recording(search_mod, "dists_to_ids", keep=64, want=lambda a: (
-                not adds and tuple(a[5].shape) == (B_RS, COMPACT_K))) \
+                not adds and tuple(a[5].shape) == (round_size, COMPACT_K))) \
             as warm_blocks:
         out = harness_mod.run_streaming_config(
-            "laion-streaming", n=B_N, dim=B_DIM, metric="cosine",
-            n_queries=N_QUERIES, M=M, ef_construction=B_EFC, round_size=B_RS,
+            config, n=B_N, dim=B_DIM, metric="cosine", n_queries=N_QUERIES,
+            M=M, ef_construction=B_EFC, round_size=round_size,
             settings=B_SETTINGS, n_steps=B_STEPS, qps_batch=B_QB,
-            verbose=False, device=DEV.type)
-    say(f"[B] run_streaming_config: {json.dumps(out)}")
+            storage=storage, data_dtype=data_dtype, verbose=False,
+            device=DEV.type)
+    say(f"[{tag}] run_streaming_config: {json.dumps(out)}")
     if len(adds) != 1 + B_STEPS \
             or len(searches) != (B_STEPS + 1) * len(B_SETTINGS):
-        raise AssertionError(f"phase B: {len(adds)} adds, {len(searches)} "
-                             f"searches")
+        raise AssertionError(f"phase {tag}: {len(adds)} adds, "
+                             f"{len(searches)} searches")
     warm_launches = sum_launches(adds[:1])
     ingest_launches = sum_launches(adds[1:])
-    # 768-d f32 rows: every K2 launch of the phase takes the ring path
-    require_launches("B warm", warm_launches,
-                     ["gather_dists", "gather_dists/ring"])
-    require_launches("B ingest", ingest_launches,
-                     ["gather_dists", "gather_dists/ring"])
+    require_launches(f"{tag} warm", warm_launches, need)
+    require_launches(f"{tag} ingest", ingest_launches, need)
     # a late warm round's level-0 build block: 64 blocks before the end
     build_call = warm_blocks[0]
     del warm_blocks
-    if warm_launches["packed_score"] or ingest_launches["packed_score"]:
-        raise AssertionError(f"phase B: the packed build ran: warm "
-                             f"{warm_launches}, ingest {ingest_launches}")
     # the last step's timed batches, one per setting
     timed = searches[-2 * len(B_SETTINGS):-len(B_SETTINGS)]
     for row, call in zip(out["sweep"], timed):
         row["launches_per_batch"] = call["launches"]
-        require_launches(f"B query {row['ef']}/{row['max_iters']}",
-                         call["launches"],
-                         ["gather_dists", "gather_dists/ring"])
+        require_launches(f"{tag} query {row['ef']}/{row['max_iters']}",
+                         call["launches"], need)
+    if any(c["launches"]["packed_score"] for c in adds + searches):
+        raise AssertionError(f"phase {tag}: K1 ran (the packed build or "
+                             f"engine): warm {warm_launches}, ingest "
+                             f"{ingest_launches}")
     if out["n"] != B_N or out["backend"] != DEV.type or not all(
             0.0 <= r["recall"] <= 1.0 and r["sustained_qps_during_ingest"] > 0
             for r in out["sweep"]):
-        raise AssertionError(f"phase B: malformed result {out}")
-    # the end-state graph and queries, from the harness's last search
+        raise AssertionError(f"phase {tag}: malformed result {out}")
+    # the end-state graph, queries and answers, from the harness's last
+    # search (its end-state recall at the last setting)
     (graph, queries), knobs = searches[-1]["args"], searches[-1]["kwargs"]
-    del adds, searches
+    found = searches[-1]["result"][0].cpu().numpy()
+    source = made[-1]["result"][0]
+    del adds, searches, made
+    if graph.vectors.dtype != storage_dtype(storage):
+        raise AssertionError(f"phase {tag}: the graph stores "
+                             f"{graph.vectors.dtype}, not {storage}")
+    # recall against the exact neighbours within the rows the graph stores
+    # (dequantized, scored as the search scores them), and the recall of
+    # those neighbours against the harness's ground truth (the source's):
+    # the most any search over these rows can reach
+    k = found.shape[1]
+    stored = graph.vectors[:B_N].float() * graph.scales[:B_N, None]
+    own = device_ground_truth(stored, search_mod.normalize_rows(
+        queries.float()), k, "ip")
+    del stored
+    rec_own = recall_of(found, own)
+    ceiling = recall_of(own, device_ground_truth(source, queries, k,
+                                                 "cosine"))
+    del source
     qb = queries.repeat(-(-B_QB // queries.shape[0]), 1)[:B_QB].contiguous()
     with recording(search_mod, "dists_to_ids") as calls:
         search_mod.knn_search(graph, qb, **knobs)
@@ -1358,35 +1490,45 @@ def phase_b(smi: str, flush, gen) -> tuple[dict, list]:
                   if tuple(c[5].shape) == (B_QB, COMPACT_K)][9]
     del calls
     query_busy = busy_share(lambda: search_mod.knn_search(graph, qb, **knobs),
-                            "B_query")
+                            f"{tag}_query")
     res = dict(warm_vps=out["warm_build_vps"], ingest_vps=out["ingest_vps"],
                launches_warm=warm_launches, launches_ingest=ingest_launches,
-               sweep=out["sweep"], query_busy=query_busy)
-    say(f"[B laion-streaming cut to {B_N}x{B_DIM} cosine] warm "
+               sweep=out["sweep"], query_busy=query_busy,
+               recall_own_rows=rec_own, recall_ceiling=ceiling)
+    say(f"[{tag} {config} cut to {B_N}x{B_DIM} cosine, {storage} rows, "
+        f"{data_dtype} source, round_size {round_size}] warm "
         f"{out['warm_build_vps']} vectors/s; ingest {out['ingest_vps']}"
         f" vectors/s over {B_STEPS} steps of {(B_N - n_warm) // B_STEPS}; "
         + "; ".join(
             f"ef={r['ef']} mi={r['max_iters']}: sustained QPS "
             f"{r['sustained_qps_during_ingest']}, end recall@10 "
             f"{r['recall']:.4f}" for r in out["sweep"])
+        + f"; at {knobs['ef']}/{knobs['max_iters']} recall@10 against the "
+        f"stored rows' own exact neighbours {rec_own:.4f}, those neighbours'"
+        f" recall@10 {ceiling:.4f} (the ceiling of {storage} rows)"
         + f"; {fmt_share(query_busy)} in a {B_QB}-query batch at "
         f"{knobs['ef']}/{knobs['max_iters']} (profiled); K2 launches warm "
-        f"{warm_launches['gather_dists']} (ring "
-        f"{warm_launches['gather_dists/ring']}), ingest "
-        f"{ingest_launches['gather_dists']} (ring "
-        f"{ingest_launches['gather_dists/ring']}) [{smi}]")
-    if out["sweep"][-1]["recall"] < B_FLOOR:
-        raise AssertionError(f"phase B recall@10 {out['sweep'][-1]['recall']}"
-                             f" < {B_FLOOR} at {B_SETTINGS[-1]}")
+        f"{warm_launches['gather_dists']} ({k2_path} "
+        f"{warm_launches[f'gather_dists/{k2_path}']}), ingest "
+        f"{ingest_launches['gather_dists']} ({k2_path} "
+        f"{ingest_launches[f'gather_dists/{k2_path}']}) [{smi}]")
+    # f32 rows are held to the harness's recall; quantized rows, whose
+    # ceiling on this data is below the floor, to the search's recall over
+    # the rows they are
+    held = out["sweep"][-1]["recall"] if storage == "f32" else rec_own
+    if held < B_FLOOR:
+        raise AssertionError(f"phase {tag} recall@10 {held} < {B_FLOOR} at "
+                             f"{B_SETTINGS[-1]} ({storage} rows)")
     rows = []
-    for tag, call, b, n in (("query", query_call, B_QB, B_N),
-                            ("build", build_call, B_RS, n_warm)):
+    for part, call, b, n in (("query", query_call, B_QB, B_N),
+                             ("build", build_call, round_size, n_warm)):
         vec, sc, qq, ids, metric = k2_args(call)
-        rows += [k2_case(f"B {tag} cold ({b}, {COMPACT_K}) cosine", vec, sc,
-                         qq, cold_ids(gen, b, COMPACT_K, n), metric, flush,
-                         time_it=True, path="ring"),
-                 k2_case(f"B {tag} real ({b}, {COMPACT_K}) cosine", vec, sc,
-                         qq, ids, metric, flush, time_it=True, path="ring")]
+        shape = f"({b}, {COMPACT_K}) {storage} cosine"
+        rows += [k2_case(f"{tag} {part} cold {shape}", vec, sc, qq,
+                         cold_ids(gen, b, COMPACT_K, n), metric, flush,
+                         time_it=True, path=k2_path),
+                 k2_case(f"{tag} {part} real {shape}", vec, sc, qq, ids,
+                         metric, flush, time_it=True, path=k2_path)]
     return res, rows
 
 
@@ -1781,6 +1923,13 @@ def main(argv: list[str]) -> int:
     gen = np.random.default_rng(3)
     if "--kernels-only" in argv:
         return kernels_only(gen)
+    if "--phase-b8" in argv:
+        t0 = time.perf_counter()
+        phase_stream("B8", *STREAM_PHASES["B8"], smi,
+                     torch.zeros(FLUSH_BYTES // 4, device=DEV), gen)
+        say(f"[B8] phase took {time.perf_counter() - t0:.1f} s; --phase-b8: "
+            "stop here")
+        return 0
 
     t0 = time.perf_counter()
     data = clustered(N, DIM, n_clusters=400, seed=7)
@@ -1801,10 +1950,12 @@ def main(argv: list[str]) -> int:
         phase_a_out, rows = phase_a(smi, flush, gen)
         k2_rows += rows
         say(f"[A] phase took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        phase_b_out, rows = phase_b(smi, flush, gen)
-        k2_rows += rows
-        say(f"[B] phase took {time.perf_counter() - t0:.1f} s")
+        stream_out = {}
+        for tag, plan in STREAM_PHASES.items():
+            t0 = time.perf_counter()
+            stream_out[tag], rows = phase_stream(tag, *plan, smi, flush, gen)
+            k2_rows += rows
+            say(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- main path: bulk build + packed query through the public API
     index = Index("l2", DIM, device=DEV.type)
@@ -1939,10 +2090,11 @@ def main(argv: list[str]) -> int:
         "A_build": phase_a_out["launches_build"],
         "A_query_batch": phase_a_out["launches_per_batch"],
         "A_add_after_load": phase_a_out["launches_add"],
-        "B_warm": phase_b_out["launches_warm"],
-        "B_ingest": phase_b_out["launches_ingest"],
-        **{f"B_query_batch_ef{r['ef']}_mi{r['max_iters']}":
-           r["launches_per_batch"] for r in phase_b_out["sweep"]},
+        **{f"{tag}_{part}": out[f"launches_{part}"]
+           for tag, out in stream_out.items() for part in ("warm", "ingest")},
+        **{f"{tag}_query_batch_ef{r['ef']}_mi{r['max_iters']}":
+           r["launches_per_batch"]
+           for tag, out in stream_out.items() for r in out["sweep"]},
         **f_out["launches"],
         "C_add": phase_c_out["launches_add"],
         "D1_glove1m": d1_out["launches"],
@@ -1983,6 +2135,10 @@ def main(argv: list[str]) -> int:
              launches_by_path_by_phase={
                  p: {path: c[f"gather_dists/{path}"] for path in k2_mod.PATHS}
                  for p, c in by_phase.items() if "gather_dists/ring" in c},
+             launches_by_dtype_by_phase={
+                 p: {dt: c[f"gather_dists/{dt}"]
+                     for dt in k2_mod.DTYPE_NAMES.values()}
+                 for p, c in by_phase.items() if "gather_dists/int8" in c},
              shapes=[{"case": r["case"], "shape": r["shape"],
                       "path": r["path"], **{s: r[s] for s in shapes},
                       "requested_bytes": r["requested_bytes"]}

@@ -7,12 +7,19 @@ with `git archive`).  Each checkout is timed in a process of its own, through
 its own wrappers (`packed_score`, `gather_dists`, built from its own
 `csrc/`), on identical inputs made on the device from fixed seeds, at the
 main path's shapes: K1 at B = 4096 and 8192 (E = 2, deg = 32, d_pad = 128,
-random nodes over a 1M-node payload), K2 f32 l2 at (8192, 32),
-(8192, 8) and (1024, 97) over 1M x 128 rows, and K2 f32 cosine at phase B's
-query and build blocks, (4096, 96) and (2048, 96), over 96k x 768 unit rows
-(laion-streaming's width).  The processes run in turns
-(other, this, this, other) so that drift of the card shows; a result is the
-median over both turns of each checkout.
+random nodes over a 1M-node payload) and at bits=4 B = 4096 (64 stored
+bytes per row), K2 f32 l2 at (8192, 32), (8192, 8) and (1024, 97) over
+1M x 128 rows, K2 cosine at phase B's query and build blocks, (4096, 96) and
+(2048, 96), over 96k x 768 unit f32 rows (laion-streaming's width), at
+phase B8's, (4096, 96) and (1024, 96), over the same rows stored int8, and
+K2 int8 l2 at (8192, 32) over 1M x 96 rows (deep10m's width).  The
+processes run in turns (other, this, this, other) so that drift of the card
+shows; a result is the median over both turns of each checkout.
+
+Each process also keeps one call's output per case: the report says
+whether the two checkouts' outputs are bit-equal, and counts the
+int->float conversion instructions (`I2F`, `I2FP`) in each checkout's
+built kernels by `cuobjdump -sass`.
 
 Each time is the median of CUDA-event timings of one call, with a spin
 kernel holding the stream while the call is enqueued (so host launch cost is
@@ -34,9 +41,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 N_NODES, DEG, D_PAD = 1_000_000, 32, 128
@@ -48,17 +57,75 @@ K1_SHAPES = (4096, 8192)
 K2_SHAPES = ((8192, 32), (8192, 8), (1024, 97))
 WIDE_ROWS, WIDE_DIM = 96_000, 768
 K2_WIDE_SHAPES = ((4096, 96), (2048, 96))
+K2_INT8_WIDE_SHAPES = ((4096, 96), (1024, 96))
+INT8_ROWS, INT8_DIM, K2_INT8_SHAPE = 1_000_000, 96, (8192, 32)
+K1_INT4_B = 4096
 MODES = ("warm", "read", "write", "enqueue")
 THIS = Path(__file__).resolve().parents[2]
+#: the conversion instructions `sass_op_counts` counts
+CONVERSIONS = ("I2F", "I2FP")
+_SASS_FN = re.compile(r"^\s*Function : (\S+)")
+_SASS_OP = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
 
 
-def _worker(tree: str, reps: int) -> None:
-    """Runs in a child process with `tree` first on sys.path."""
+def count_sass_ops(sass: str, ops=CONVERSIONS) -> dict[str, dict]:
+    """{mangled kernel: {op: count}} over `cuobjdump -sass` text: each
+    instruction line's opcode (its predicate and modifiers aside)."""
+    counts: dict[str, dict] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = _SASS_FN.match(line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+            continue
+        m = _SASS_OP.match(line)
+        if fn is not None and m and m.group(1) in ops:
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
+def sass_op_counts(library: Path, ops=CONVERSIONS) -> dict[str, dict]:
+    """`count_sass_ops` over a built kernel library (`cuobjdump -sass`,
+    from the toolkit beside nvcc), with each kernel's registers under
+    "REG" (`cuobjdump -res-usage`); kernel names demangled without their
+    argument lists."""
+    from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+
+    def dump(flag: str) -> str:
+        return subprocess.run([str(tool), flag, str(library)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+
+    counts = count_sass_ops(dump("-sass"), ops)
+    fn = None
+    for line in dump("-res-usage").splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"\bREG:(\d+)", line)
+        if m and fn in counts:
+            counts[fn]["REG"] = int(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(counts),
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    return {name.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]: c
+            for name, c in zip(names, counts.values())}
+
+
+def _worker(tree: str, reps: int, dump: str) -> None:
+    """Runs in a child process with `tree` first on sys.path; prints the
+    timings as JSON and saves one output per case to `dump`."""
     sys.path.insert(0, tree)
     import torch
 
+    from ocaml_hnsw_tpu_torch.ops.kernels import _lib
     from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import gather_dists
     from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import packed_score
+    from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 
     dev = torch.device("cuda")
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -87,7 +154,15 @@ def _worker(tree: str, reps: int) -> None:
         return statistics.median(times)
 
     g = torch.Generator(device=dev).manual_seed(2024)
-    out = []
+    out, outputs = [], {}
+
+    def case(kernel: str, shape, nbytes: int, fn) -> None:
+        """Times fn under every mode and keeps one of its outputs."""
+        outputs[f"{kernel} {list(shape)}"] = fn()
+        for mode in MODES:
+            out.append(dict(kernel=kernel, shape=list(shape), mode=mode,
+                            bytes=nbytes, ms=time_ms(fn, mode)))
+
     big = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(big)
     for name, fn, moved in (
@@ -114,11 +189,25 @@ def _worker(tree: str, reps: int) -> None:
         args = (nodes, meta, pay, q8, qn, scale, True)
         nbytes = (int(torch.unique(nodes).numel()) * (DEG * D_PAD + 8 * DEG)
                   + b * (D_PAD + 4) + b * 2 * 4 + b * 2 * DEG * 8)
-        for mode in MODES:
-            out.append(dict(kernel="packed_score", shape=[b, 2, DEG, D_PAD],
-                            mode=mode, bytes=nbytes,
-                            ms=time_ms(lambda: packed_score(*args), mode)))
-    del pay, meta
+        case("packed_score", [b, 2, DEG, D_PAD], nbytes,
+             lambda: packed_score(*args))
+    # bits=4: the first half of each slab row's bytes as nibble pairs, a
+    # bf16 query row of 2 x 64 components
+    stored = D_PAD // 2
+    pay4 = pay[:, :, :stored].contiguous()
+    del pay
+    b = K1_INT4_B
+    nodes = torch.randint(0, N_NODES, (b, 2), dtype=torch.int32, device=dev,
+                          generator=g)
+    q16 = (torch.randn((b, 2 * stored), device=dev, generator=g) * 3).to(
+        torch.bfloat16)
+    qn = torch.rand(b, device=dev, generator=g) * 100
+    args4 = (nodes, meta, pay4, q16, qn, scale, True, None, 4)
+    nbytes = (int(torch.unique(nodes).numel()) * (DEG * stored + 8 * DEG)
+              + b * (4 * stored + 4) + b * 2 * 4 + b * 2 * DEG * 8)
+    case("packed_score bits=4", [b, 2, DEG, stored], nbytes,
+         lambda: packed_score(*args4))
+    del pay4, meta
     rows = torch.randn((N_ROWS, DIM), device=dev, generator=g)
     ones = torch.ones(N_ROWS, device=dev)
     for b, k in K2_SHAPES:
@@ -127,28 +216,60 @@ def _worker(tree: str, reps: int) -> None:
         q = torch.randn((b, DIM), device=dev, generator=g)
         nbytes = (int(torch.unique(ids).numel()) * DIM * 4 + b * DIM * 4
                   + b * k * 8)
-        for mode in MODES:
-            out.append(dict(kernel="gather_dists", shape=[b, k, DIM],
-                            mode=mode, bytes=nbytes,
-                            ms=time_ms(lambda: gather_dists(rows, ones, q, ids,
-                                                            "l2"), mode)))
+        case("gather_dists", [b, k, DIM], nbytes,
+             lambda: gather_dists(rows, ones, q, ids, "l2"))
     del rows, ones
+    rows = torch.randn((INT8_ROWS, INT8_DIM), device=dev, generator=g)
+    vec, sc, _ = quantize_rows(rows, "int8")
+    del rows
+    b, k = K2_INT8_SHAPE
+    ids = torch.randint(0, INT8_ROWS, (b, k), dtype=torch.int32, device=dev,
+                        generator=g)
+    q = torch.randn((b, INT8_DIM), device=dev, generator=g)
+    nbytes = (int(torch.unique(ids).numel()) * (INT8_DIM + 4)
+              + b * INT8_DIM * 4 + b * k * 8)
+    case("gather_dists int8", [b, k, INT8_DIM], nbytes,
+         lambda: gather_dists(vec, sc, q, ids, "l2"))
+    del vec, sc
     rows = torch.randn((WIDE_ROWS, WIDE_DIM), device=dev, generator=g)
     rows /= torch.linalg.norm(rows, dim=1, keepdim=True)
     ones = torch.ones(WIDE_ROWS, device=dev)
-    for b, k in K2_WIDE_SHAPES:
-        ids = torch.randint(0, WIDE_ROWS, (b, k), dtype=torch.int32,
-                            device=dev, generator=g)
-        q = torch.randn((b, WIDE_DIM), device=dev, generator=g)
-        q /= torch.linalg.norm(q, dim=1, keepdim=True)
-        nbytes = (int(torch.unique(ids).numel()) * WIDE_DIM * 4
-                  + b * WIDE_DIM * 4 + b * k * 8)
-        for mode in MODES:
-            out.append(dict(kernel="gather_dists cosine",
-                            shape=[b, k, WIDE_DIM], mode=mode, bytes=nbytes,
-                            ms=time_ms(lambda: gather_dists(
-                                rows, ones, q, ids, "cosine"), mode)))
+    vec8, sc8, _ = quantize_rows(rows, "int8")
+    for storage, vec, sc, shapes, row_bytes in (
+            ("", rows, ones, K2_WIDE_SHAPES, WIDE_DIM * 4),
+            (" int8", vec8, sc8, K2_INT8_WIDE_SHAPES, WIDE_DIM + 4)):
+        for b, k in shapes:
+            ids = torch.randint(0, WIDE_ROWS, (b, k), dtype=torch.int32,
+                                device=dev, generator=g)
+            q = torch.randn((b, WIDE_DIM), device=dev, generator=g)
+            q /= torch.linalg.norm(q, dim=1, keepdim=True)
+            nbytes = (int(torch.unique(ids).numel()) * row_bytes
+                      + b * WIDE_DIM * 4 + b * k * 8)
+            case(f"gather_dists{storage} cosine", [b, k, WIDE_DIM], nbytes,
+                 lambda: gather_dists(vec, sc, q, ids, "cosine"))
+    torch.save({key: tuple(t.cpu() for t in (o if isinstance(o, tuple)
+                                              else (o,)))
+                for key, o in outputs.items()}, dump)
+    out.append(dict(kernel="sass", counts=sass_op_counts(_lib.build())))
     print(json.dumps(out))
+
+
+def _compare(dumps: dict[str, list[str]]) -> dict[str, bool]:
+    """Per case: are the first turn's outputs of both checkouts bit-equal
+    (and each checkout's two turns equal to each other)?"""
+    import torch
+
+    got = {who: [torch.load(f) for f in files] for who, files in dumps.items()}
+    same = {}
+    for key in got["this"][0]:
+        a, b = got["this"][0][key], got["other"][0][key]
+        same[key] = all(torch.equal(x, y) for x, y in zip(a, b))
+        for who in got:
+            if not all(torch.equal(x, y) for x, y in
+                       zip(got[who][0][key], got[who][1][key])):
+                raise SystemExit(f"kernel_race: {who}'s two turns disagree "
+                                 f"on {key}")
+    return same
 
 
 def main() -> int:
@@ -158,9 +279,10 @@ def main() -> int:
     ap.add_argument("--out", help="write the results as JSON here")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--dump", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        _worker(args.worker, args.reps)
+        _worker(args.worker, args.reps, args.dump)
         return 0
     import torch
 
@@ -173,18 +295,30 @@ def main() -> int:
     turns = [("other", other), ("this", str(THIS)), ("this", str(THIS)),
              ("other", other)]
     results: dict[tuple, dict[str, list[float]]] = {}
-    for who, tree in turns:
-        env = dict(os.environ, PYTHONPATH=tree)
-        proc = subprocess.run(
-            [sys.executable, __file__, "--other", other, "--worker", tree,
-             "--reps", str(args.reps)],
-            capture_output=True, text=True, env=env, cwd=tree, timeout=900)
-        if proc.returncode != 0:
-            raise SystemExit(f"kernel_race: {who} ({tree}) failed:\n"
-                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-        for r in json.loads(proc.stdout.strip().splitlines()[-1]):
-            key = (r["kernel"], tuple(r["shape"]), r["mode"], r["bytes"])
-            results.setdefault(key, {}).setdefault(who, []).append(r["ms"])
+    sass: dict[str, dict] = {}
+    dumps: dict[str, list[str]] = {"this": [], "other": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (who, tree) in enumerate(turns):
+            env = dict(os.environ, PYTHONPATH=tree)
+            dump = os.path.join(tmp, f"{i}_{who}.pt")
+            proc = subprocess.run(
+                [sys.executable, __file__, "--other", other, "--worker",
+                 tree, "--reps", str(args.reps), "--dump", dump],
+                capture_output=True, text=True, env=env, cwd=tree,
+                timeout=900)
+            if proc.returncode != 0:
+                raise SystemExit(f"kernel_race: {who} ({tree}) failed:\n"
+                                 f"{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+            dumps[who].append(dump)
+            for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+                if r["kernel"] == "sass":
+                    sass[who] = r["counts"]
+                    continue
+                key = (r["kernel"], tuple(r["shape"]), r["mode"], r["bytes"])
+                results.setdefault(key, {}).setdefault(who, []).append(
+                    r["ms"])
+        same = _compare(dumps)
     table = []
     print(f"[race] {smi}; other = {other}")
     for (kernel, shape, mode, nbytes), by in results.items():
@@ -194,6 +328,8 @@ def main() -> int:
                    other_ms=statistics.median(by["other"]),
                    this_ms=statistics.median(by["this"]),
                    other_turns=by["other"], this_turns=by["this"])
+        if f"{kernel} {list(shape)}" in same:
+            row["bit_equal"] = same[f"{kernel} {list(shape)}"]
         table.append(row)
         print(f"[race] {kernel} {list(shape)} {mode:7s} bound "
               f"{bound_ms * 1e3:6.1f} us  other {row['other_ms'] * 1e3:7.1f} us"
@@ -201,9 +337,16 @@ def main() -> int:
               f"{row['this_ms'] * 1e3:7.1f} us ({bound_ms / row['this_ms']:.0%})"
               f"  turns other {[round(t * 1e3, 1) for t in by['other']]} "
               f"this {[round(t * 1e3, 1) for t in by['this']]}")
+    for key, eq in same.items():
+        print(f"[race] outputs {key}: "
+              f"{'bit-equal' if eq else 'DIFFER'} between the checkouts")
+    for who, counts in sass.items():
+        for kernel, c in counts.items():
+            print(f"[race] sass {who} {kernel}: {json.dumps(c)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(table, indent=1))
+        Path(args.out).write_text(json.dumps(dict(
+            card=smi, rows=table, bit_equal=same, sass=sass), indent=1))
     return 0
 
 

@@ -777,13 +777,18 @@ class BuildState:
             self.bank.append(ids, vecs.to(torch.bfloat16), nrm)
 
     def prep(self, data):
-        """Normalize at add time (cosine-style metrics)."""
+        """Normalize at add time (cosine-style metrics).  A bf16 tensor
+        stays bf16, as the JAX package normalizes a device-resident source
+        in its own dtype (`_normalize_rows_donated`): the rows quantized
+        into the graph are the bf16-rounded unit rows."""
         normalize = get_metric(self.config.metric).normalize_add
         if isinstance(data, torch.Tensor):
             if normalize:
                 from ocaml_hnsw_tpu_torch.models.search import normalize_rows
 
-                data = normalize_rows(data.float())
+                unit = normalize_rows(data.float())
+                data = (unit.to(torch.bfloat16)
+                        if data.dtype == torch.bfloat16 else unit)
             return data
         data = np.asarray(data, dtype=np.float32)
         if normalize:

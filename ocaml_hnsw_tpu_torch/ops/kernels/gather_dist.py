@@ -20,6 +20,14 @@ from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 #: built-in metrics the kernel computes: 0 = l2, 1 = 1 - dot
 KERNEL_METRICS = {"l2": 0, "ip": 1, "cosine": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: row dtypes by the names `gather_dists.launches_by_dtype` counts under
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int8: "int8"}
+#: the kernel widens int8 rows without a conversion instruction (csrc
+#: `biased_byte`): f32 bits INT8_MAGIC | (b ^ 0x80) are 2^23 + 128 + v for
+#: the signed byte v stored as bits b, and minus INT8_BIAS = 2^23 + 128 they
+#: are v exactly (`int8_bits_to_float` is that construction in torch)
+INT8_MAGIC, INT8_BIAS = 0x4B000000, 8388736.0
 #: warp tasks the plan aims for per SM (about 4 per resident warp), so the
 #: persistent grid ends with little imbalance
 TASKS_PER_SM = 128
@@ -140,6 +148,13 @@ def launch_plan(b: int, k: int, dim: int, itemsize: int, aligned: bool,
     return dataclasses.replace(plan, kc=kc, nchunks=-(-k // kc))
 
 
+def int8_bits_to_float(v: torch.Tensor) -> torch.Tensor:
+    """int8 values -> f32 by the kernel's bit construction (the plain
+    mirror of csrc/gather_dist.cu `biased_byte`): equal to `v.float()`."""
+    b = v.to(torch.int32) & 0xFF
+    return (INT8_MAGIC | (b ^ 0x80)).view(torch.float32) - INT8_BIAS
+
+
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -167,7 +182,8 @@ def gather_dists(vectors, scales, q, ids, metric: str,
         CUDA tensors launch the kernel or raise (there is no fallback).
         `gather_dists.launches` counts these launches and nothing else,
         `gather_dists.launches_by_path` the same launches by the plan's
-        path ("vector", "ring", "generic"); `path` forces one (for timing
+        path ("vector", "ring", "generic"), `launches_by_dtype` by the
+        rows' dtype ("f32", "bf16", "int8"); `path` forces one (for timing
         one against another: `launch_plan`).
       * any other registered metric: gather, dequantize and the metric's own
         `pair_dist`, on whatever device the tensors are on.  A user's Python
@@ -213,9 +229,11 @@ def gather_dists(vectors, scales, q, ids, metric: str,
     _lib.check(status, "gather_dists")
     gather_dists.launches += 1
     gather_dists.launches_by_path[plan.path] += 1
+    gather_dists.launches_by_dtype[DTYPE_NAMES[vectors.dtype]] += 1
     return out
 
 
 gather_dists.launches = 0  # kernel launches (not counting plain-version calls)
 gather_dists.launches_by_path = dict.fromkeys(PATHS, 0)
+gather_dists.launches_by_dtype = dict.fromkeys(DTYPE_NAMES.values(), 0)
 gather_dists.registry_calls = 0  # calls under a metric outside KERNEL_METRICS

@@ -14,11 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from ocaml_hnsw_tpu.bench.datasets import clustered, queries_like
+from ocaml_hnsw_tpu.models.build import (
+    _normalize_rows_donated as jax_normalize_rows,
+)
+from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
 from ocaml_hnsw_tpu.oracle.bruteforce import bruteforce_knn, recall
 
 from ocaml_hnsw_tpu_torch.bench import __main__ as cli
-from ocaml_hnsw_tpu_torch.bench import datasets, harness
+from ocaml_hnsw_tpu_torch.bench import datasets, harness, kernel_race
 from ocaml_hnsw_tpu_torch.models.flat import flat_search
 
 # One torch thread: under pytest-xdist every worker's default pool (one
@@ -103,6 +109,69 @@ def test_run_streaming_config_tiny():
     assert r["met_target"] and (r["ef"], r["max_iters"]) == (48, 16)
     assert r["sustained_qps_during_ingest"] > 0
     json.dumps(r)
+
+
+def test_streaming_int8_rows_from_bf16_source_match_jax(monkeypatch):
+    """laion5m-streaming's memory plan (int8 rows in the graph, a bf16
+    source; chip_smoke.py phase B8) at a tiny size, round_size cut with n
+    (1024 would cost 12 s more here and store the same rows): the
+    rows and scales the graph stores equal what the JAX package stores from
+    the same bf16 source rows, its in-place normalization (which keeps
+    bf16) then `ops/quantize.py::quantize_rows`; the result carries the
+    JAX harness's keys."""
+    states, sources = [], []
+    real_state, real_data = harness.BuildState, datasets.clustered_device
+
+    def keep_state(*args, **kwargs):
+        states.append(real_state(*args, **kwargs))
+        return states[-1]
+
+    def keep_data(*args, **kwargs):
+        out = real_data(*args, **kwargs)
+        sources.append(out[0])
+        return out
+
+    monkeypatch.setattr(harness, "BuildState", keep_state)
+    monkeypatch.setattr(datasets, "clustered_device", keep_data)
+    r = harness.run_streaming_config(
+        "stream8", n=800, dim=16, metric="cosine", n_queries=32, M=8,
+        ef_construction=32, round_size=256, settings=((48, 16),),
+        n_steps=2, qps_batch=32, storage="int8", data_dtype="bf16",
+        verbose=False, device="cpu")
+    assert list(r) == STREAM_KEYS and r["backend"] == "cpu"
+    (src,), (state,) = sources, states
+    assert src.dtype == torch.bfloat16 and src.shape == (800, 16)
+    unit = jax_normalize_rows(jnp.asarray(src.float().numpy()).astype(
+        jnp.bfloat16))
+    rows, scales, _ = jax_quantize_rows(unit.astype(jnp.float32), "int8")
+    g = state.graph
+    assert g.vectors.dtype == torch.int8
+    np.testing.assert_array_equal(g.vectors[:800].numpy(), np.asarray(rows))
+    np.testing.assert_array_equal(g.scales[:800].numpy(), np.asarray(scales))
+    assert r["sweep"][0]["recall"] >= 0.9
+    json.dumps(r)
+
+
+def test_count_sass_ops():
+    """kernel_race.py's count of int->float conversions in `cuobjdump
+    -sass` text: per kernel, by opcode, predicated or not, modifiers
+    aside; other opcodes and the header lines not counted."""
+    sass = """
+    code for sm_90a
+        Function : _ZN12_GLOBAL__N_117gather_vec_kernelIaLb1ELb1ELi1EEEvv
+    .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0 */
+        /*0010*/                   I2F.S8 R5, R4 ;          /* 0x0 */
+        /*0020*/              @!P0 I2F.S16 R6, R4 ;         /* 0x0 */
+        /*0030*/                   I2FP.F32.S32 R7, R4 ;    /* 0x0 */
+        Function : _Z3foov
+        /*0000*/                   PRMT R2, R3, 0x7440, R4 ; /* 0x0 */
+        /*0010*/                   FADD R1, R2, -8388736 ;  /* 0x0 */
+"""
+    assert kernel_race.count_sass_ops(sass) == {
+        "_ZN12_GLOBAL__N_117gather_vec_kernelIaLb1ELb1ELi1EEEvv":
+            {"I2F": 2, "I2FP": 1},
+        "_Z3foov": {"I2F": 0, "I2FP": 0}}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

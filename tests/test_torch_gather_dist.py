@@ -19,8 +19,8 @@ from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
 from ocaml_hnsw_tpu_torch.ops.distance import dists_to_ids
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
-    PATHS, RING_MIN_ROW_BYTES, RING_WARPS, gather_dists, gather_dists_plain,
-    launch_plan, ring_smem,
+    INT8_BIAS, INT8_MAGIC, PATHS, RING_MIN_ROW_BYTES, RING_WARPS, gather_dists,
+    gather_dists_plain, int8_bits_to_float, launch_plan, ring_smem,
 )
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 
@@ -52,6 +52,50 @@ class TestAgainstPallasKernel:
                                  torch.from_numpy(q), torch.from_numpy(ids),
                                  "l2")
         np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+class TestInt8BitConstruction:
+    """csrc/gather_dist.cu widens int8 rows without a conversion
+    instruction: f32 bits INT8_MAGIC | (b ^ 0x80), minus INT8_BIAS.  That
+    must be the float of the signed byte for every byte, and the rows the
+    kernel is held to on the card (every value -128..127, scales from 0 to
+    1e30) must give JAX's distances."""
+
+    def test_every_byte_numpy(self):
+        v = np.arange(-128, 128, dtype=np.int8)
+        bits = np.uint32(INT8_MAGIC) | (v.view(np.uint8).astype(np.uint32)
+                                        ^ np.uint32(0x80))
+        got = bits.view(np.float32) - np.float32(INT8_BIAS)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, v.astype(np.float32))
+
+    def test_mirror_every_byte(self):
+        v = torch.arange(-128, 128).to(torch.int8)
+        got = int8_bits_to_float(v)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, v.float())
+
+    @pytest.mark.parametrize("scale", [0.0, 1e-30, 1.0, 1e30])
+    @pytest.mark.parametrize("metric", ["l2", "ip"])
+    def test_every_byte_rows_match_jax(self, scale, metric):
+        """Each row holds every int8 value once (quantize_rows never stores
+        -128; a row written another way may); at scale 1e30 every l2
+        distance overflows to +inf in both packages."""
+        rng = np.random.RandomState(8)
+        vals = np.arange(-128, 128, dtype=np.int8)
+        rows = np.stack([rng.permutation(vals) for _ in range(40)])
+        scales = np.full(40, scale, np.float32)
+        ids = rng.randint(-1, 40, size=(6, 9)).astype(np.int32)
+        q = rng.randn(6, 256).astype(np.float32)
+        ref = np.asarray(jax_dists_to_ids(
+            jnp.asarray(rows), jnp.asarray(scales), jnp.zeros(40),
+            jnp.asarray(q), jnp.zeros(6), jnp.asarray(ids), metric))
+        out = gather_dists_plain(torch.from_numpy(rows),
+                                 torch.from_numpy(scales), torch.from_numpy(q),
+                                 torch.from_numpy(ids), metric)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+        deq = int8_bits_to_float(torch.from_numpy(rows)) * scale
+        assert torch.equal(deq, torch.from_numpy(rows).float() * scale)
 
 
 class TestAgainstDistsToIds:
@@ -110,6 +154,19 @@ class TestAgainstDistsToIds:
         assert torch.equal(gather_dists(*args, path="ring"),
                            gather_dists_plain(*args))
         assert gather_dists.launches_by_path == before
+
+    def test_cpu_wrapper_counts_no_dtype(self):
+        """int8 rows on CPU tensors: the plain version, and no dtype's
+        launch count moves (chip_smoke.py requires `gather_dists/int8`
+        launches in phase B8 from the card's runs only)."""
+        vecs, ids, q = _inputs(7, 100, 96, 4, 8)
+        rows, scales, _ = quantize_rows(torch.from_numpy(vecs), "int8")
+        args = (rows, scales, torch.from_numpy(q), torch.from_numpy(ids),
+                "l2")
+        before = dict(gather_dists.launches_by_dtype)
+        assert set(before) == {"f32", "bf16", "int8"}
+        assert torch.equal(gather_dists(*args), gather_dists_plain(*args))
+        assert gather_dists.launches_by_dtype == before
 
     def test_registered_metric_on_cpu(self):
         from ocaml_hnsw_tpu_torch.ops import metrics

@@ -29,7 +29,7 @@ from ocaml_hnsw_tpu_torch.models.packed import (
 )
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
-    WARPS, launch_plan, packed_score, packed_score_plain,
+    WARPS, launch_plan, nibble_unpack, packed_score, packed_score_plain,
 )
 
 # One torch thread: under pytest-xdist every worker's default pool (one
@@ -157,6 +157,47 @@ def test_cpu_wrapper_options_are_plain(packs):
         slots = tp.deg if args[7] is None else args[7]
         assert a[0].shape == (B, E * slots)
     assert packed_score.launches == before
+
+
+@pytest.mark.parametrize("needs_norms", [True, False])
+def test_plain_int4_every_nibble_pair_is_exact(needs_norms):
+    """bits=4 slabs whose rows hold every byte (all 256 nibble pairs,
+    as chip_smoke.py holds the kernel to) against integer bf16
+    queries: every product and partial sum is an integer under 2^24,
+    so the plain version's f32 dot is exact and equals an f64 dot of
+    the signed nibbles."""
+    rng = np.random.RandomState(3)
+    n, deg, d_pad, b = 30, 8, 256, 5
+    pay = np.stack([np.stack([rng.permutation(256).astype(np.uint8)
+                              for _ in range(deg)]) for _ in range(n)])
+    pay = torch.from_numpy(pay.view(np.int8))
+    ids = rng.randint(-1, n, size=(n, deg)).astype(np.int32)
+    nrm = rng.randint(0, 1 << 12, size=(n, deg)).astype(np.int32)
+    meta = torch.from_numpy(np.concatenate([ids, nrm], axis=1))
+    q16 = torch.from_numpy(rng.randint(-8, 9, size=(b, 2 * d_pad))
+                           .astype(np.float32)).to(torch.bfloat16)
+    nodes = torch.from_numpy(rng.randint(-1, n, size=(b, 2))
+                             .astype(np.int32))
+    qn = torch.from_numpy(rng.rand(b).astype(np.float32) * 100)
+    scale = torch.tensor(0.05)
+    cand_ids, cand_d = packed_score_plain(nodes, meta, pay, q16, qn,
+                                          scale, needs_norms, bits=4)
+    safe = nodes.clamp_min(0).long()
+    comps = torch.stack(nibble_unpack(pay), dim=-1).reshape(
+        n, deg, 2 * d_pad)
+    dot = torch.einsum("bejd,bd->bej", comps[safe].double(),
+                       q16.double()).float()
+    s2 = scale * scale
+    if needs_norms:
+        d = s2 * (meta[safe][:, :, deg:].float() - 2.0 * dot) \
+            + qn[:, None, None]
+    else:
+        d = 1.0 - s2 * dot
+    want_ids = torch.where((nodes >= 0)[:, :, None],
+                           meta[safe][:, :, :deg], -1).reshape(b, -1)
+    assert torch.equal(cand_ids, want_ids)
+    want = torch.where(want_ids < 0, float("inf"), d.reshape(b, -1))
+    np.testing.assert_allclose(cand_d.numpy(), want.numpy(), rtol=1e-6)
 
 
 class TestLaunchPlan:
