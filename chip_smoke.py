@@ -58,7 +58,10 @@ an 8192-query batch, K2's seed and rerank ids of that batch, and one
 reuse remains is the sharing of hub rows inside one call.  Each time stands
 beside its bound: the bytes the call must move (every distinct row or slab
 it touches read once, every output written once) over 3.35 TB/s, or its
-operations over the peak rate for their type if that is longer.
+operations over the peak rate for their type if that is longer.  A line
+`[floor]` gives the time of a near-empty launch timed the same way, which
+every kernel time includes; each timed K1 line also gives its ring's
+stages, the kernel's registers, resident warps per SM and items per warp.
 
 The kernels are also held and timed at the other paths' shapes, on inputs
 captured there: K2 on a phase-A build round's candidate block, on the
@@ -109,6 +112,7 @@ from ocaml_hnsw_tpu_torch.models import packed as packed_mod
 from ocaml_hnsw_tpu_torch.models import search as search_mod
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels import gather_dist as k2_mod
+from ocaml_hnsw_tpu_torch.ops.kernels import payload_score as k1_mod
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
     gather_dists, gather_dists_plain,
 )
@@ -203,6 +207,7 @@ DEV = torch.device("cuda")
 PROFILE_DIR = None  # --profile-dir: where busy_share writes op tables
 NO_LIBRARY = ("no single PyTorch call computes it: a gather and a distance "
               "are at least two calls (index_select, then a reduction)")
+K1_REGS: dict = {}  # registers per K1 instance (phase_build_kernels)
 
 
 def say(msg: str) -> None:
@@ -271,6 +276,38 @@ def k1_int4_bound(args, d, d_ref):
     return (2.0 ** -14 * s2 * absdot.reshape(b, -1)
             + 2.0 ** -20 * (s2 * nrm.reshape(b, -1) + qn[:, None].abs()
                             + d_ref.abs()))
+
+
+def k1_residency(args) -> dict:
+    """The ring packed_score launches `args` with (its launch plan, as the
+    wrapper picks it) and what the card holds of it: stages, the kernel
+    instance's registers, resident warps per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and items per warp."""
+    nodes, meta, pay = args[:3]
+    slots = (args[7] if len(args) > 7 else None) or pay.shape[1]
+    bits = args[8] if len(args) > 8 else 8
+    b, e = nodes.shape
+    _, deg, d_pad = pay.shape
+    sms = torch.cuda.get_device_properties(pay.device).multi_processor_count
+    plan = k1_mod.launch_plan(e, deg, d_pad, meta.data_ptr() % 16 == 0,
+                              slots, bits)
+    per_sm = k1_mod.occupancy(plan, d_pad, bits)
+    held = min(sms * per_sm * plan.warps,
+               -(-b * e // plan.warps) * plan.warps)
+    return dict(stages=plan.stages,
+                registers=K1_REGS.get(k1_mod.kernel_instance(d_pad, bits)),
+                warps_per_sm=per_sm * plan.warps, items_per_warp=b * e / held)
+
+
+def method_floor() -> dict:
+    """Device time of a near-empty launch (`torch.cuda._sleep(1)`) by
+    `device_ms`, with and without the L2 flush: what every kernel time in
+    this script includes besides the kernel's own work."""
+    flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
+    floor = {mode: device_ms(lambda: torch.cuda._sleep(1), f) * 1e3
+             for mode, f in (("cold", flush), ("warm", None))}
+    del flush
+    return floor
 
 
 def k2_cost(vec, ids, metric: str) -> tuple[int, int]:
@@ -344,13 +381,18 @@ def k1_case(label: str, args, flush=None, time_it: bool = False) -> dict:
     _, deg, d_pad = pay.shape
     row = dict(case=label, shape=[*nodes.shape, deg, d_pad], slots=slots,
                bits=bits, max_abs_err=err)
+    ring = ""
     if time_it:
         nbytes, ops, peak = k1_cost(nodes, slots, d_pad, bits)
         timed(row, lambda: packed_score(*args),
               lambda: packed_score_plain(*args), nbytes, ops, peak, flush)
+        row.update(k1_residency(args))
+        ring = (f"; {row['stages']} stages, {row['registers']} registers, "
+                f"{row['warps_per_sm']} warps per SM, "
+                f"{row['items_per_warp']:.2f} items per warp")
     say(f"[K1 packed_score] {label} B={nodes.shape[0]} E={nodes.shape[1]} "
         f"deg={deg} slots={slots} d_pad={d_pad} bits={bits}: {agree}; "
-        f"{fmt(row)}")
+        f"{fmt(row)}{ring}")
     return row
 
 
@@ -554,6 +596,8 @@ def phase_build_kernels() -> None:
     for name, (_, regs, spill) in zip(names, kernels):
         name = name.replace("(anonymous namespace)::", "").split("(")[0]
         say(f"[build] {name}: {regs}; {spill}")
+        if name.startswith("void packed_score_kernel"):
+            K1_REGS[name[len("void "):]] = int(regs.split()[1])
     # int -> float conversion instructions per kernel (cuobjdump -sass).
     # Every kernel keeps a few outside its loops (integer division by way
     # of a float reciprocal, K1's epilogue); K2 widens int8 rows by integer
@@ -624,6 +668,7 @@ def check_k1_edges(gen) -> list[dict]:
         ("deg=33 meta off the ring", 50_000, 33, 128, 1000, 3),
         ("d_pad=256", 20_000, 32, 256, 777, 2),
         ("d_pad=768 (25.6 KB stages)", 20_000, 32, 768, 512, 2),
+        ("d_pad=48 (3 chunks a row)", 20_000, 32, 48, 777, 2),
         ("deg=64 d_pad=1024 (a warp per block)", 4_000, 64, 1024, 256, 2),
         ("deg=128 d_pad=1024 (one stage)", 1_000, 128, 1024, 200, 2),
         ("B=1 E=1", 1_000, 24, 128, 1, 1),
@@ -647,12 +692,24 @@ def check_k1_edges(gen) -> list[dict]:
             for slots in (1, deg):
                 rows.append(k1_case(f"slots={slots}", (
                     nodes, meta, pay, q8, qn, scale, True, slots, 8)))
-            rows.append(k1_case("slots=17 meta misaligned", (
-                nodes, off, pay, q8, qn, scale, True, 17, 8)))
+            for slots, needs_norms in ((17, True), (16, True), (9, False)):
+                rows.append(k1_case(f"slots={slots} meta misaligned", (
+                    nodes, off, pay, q8, qn, scale, needs_norms, slots, 8)))
         if label == "d_pad=256":  # deg 32: the meta row rides in the ring
             for slots in (17, 31):
                 rows.append(k1_case(f"slots={slots} meta in ring", (
                     nodes, meta, pay, q8, qn, scale, False, slots, 8)))
+        if d_pad != 128:
+            # two lanes per row at <= 16 slots on the generic instance
+            # (d_pad / 16 chunks from d_pad; at d_pad 48 an odd count, the
+            # halves 2 and 1)
+            for slots in (9, 16):
+                for needs_norms in (True, False):
+                    rows.append(k1_case(
+                        f"{label} slots={slots} "
+                        f"{'l2' if needs_norms else 'ip'}",
+                        (nodes, meta, pay, q8, qn, scale, needs_norms, slots,
+                         8)))
         del pay, meta
     rows += check_k1_int4(scale, gen)
     check_k1_empty(scale)
@@ -1920,6 +1977,10 @@ def main(argv: list[str]) -> int:
                         format="[%(name)s] %(message)s")
     logging.getLogger("ocaml_hnsw_tpu_torch").setLevel(logging.INFO)
     phase_build_kernels()
+    floor = method_floor()
+    say(f"[floor] a near-empty launch (torch.cuda._sleep(1)) timed as every "
+        f"kernel here: {floor['cold']:.2f} us cold, {floor['warm']:.2f} us "
+        f"warm; each kernel time below includes it [{smi}]")
     gen = np.random.default_rng(3)
     if "--kernels-only" in argv:
         return kernels_only(gen)
@@ -2105,6 +2166,7 @@ def main(argv: list[str]) -> int:
         "E_packed_query_batch": e_out["launches_packed_batch"],
     }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
+    k1_ring = ("stages", "registers", "warps_per_sm", "items_per_warp")
     record = {"kernels": [
         dict(name="packed_score", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/payload_score.cu",
@@ -2119,7 +2181,7 @@ def main(argv: list[str]) -> int:
              library_note=NO_LIBRARY,
              shapes=[{"case": r["case"], "shape": r["shape"],
                       "slots": r["slots"], "bits": r["bits"],
-                      **{s: r[s] for s in shapes}}
+                      **{s: r[s] for s in shapes + k1_ring}}
                      for r in k1_rows if "ms" in r]),
         dict(name="gather_dists", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/gather_dist.cu",

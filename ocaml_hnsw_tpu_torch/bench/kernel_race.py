@@ -7,8 +7,10 @@ with `git archive`).  Each checkout is timed in a process of its own, through
 its own wrappers (`packed_score`, `gather_dists`, built from its own
 `csrc/`), on identical inputs made on the device from fixed seeds, at the
 main path's shapes: K1 at B = 4096 and 8192 (E = 2, deg = 32, d_pad = 128,
-random nodes over a 1M-node payload) and at bits=4 B = 4096 (64 stored
-bytes per row), K2 f32 l2 at (8192, 32), (8192, 8) and (1024, 97) over
+random nodes over a 1M-node payload), at phase C's B = 1024 E = 8, at phase
+E's shard step (B = 8192 over a 100k-node payload), at phase F2's slots=16
+(B = 8192), at bits=4 B = 4096 (64 stored bytes per row) and on phase F4's
+refined deg-16 payload (B = 4096, [1M, 16, 128]), K2 f32 l2 at (8192, 32), (8192, 8) and (1024, 97) over
 1M x 128 rows, K2 cosine at phase B's query and build blocks, (4096, 96) and
 (2048, 96), over 96k x 768 unit f32 rows (laion-streaming's width), at
 phase B8's, (4096, 96) and (1024, 96), over the same rows stored int8, and
@@ -53,13 +55,18 @@ N_ROWS, DIM = 1_000_000, 128
 FLUSH_BYTES = 128 << 20
 SPIN_CYCLES = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-K1_SHAPES = (4096, 8192)
+#: K1 at deg 32, d_pad 128: (label, B, E, payload nodes, slots)
+K1_SHAPES = (("", 4096, 2, N_NODES, None), ("", 8192, 2, N_NODES, None),
+             (" C", 1024, 8, N_NODES, None),
+             (" E shard", 8192, 2, 100_000, None),
+             (" slots=16", 8192, 2, N_NODES, 16))
 K2_SHAPES = ((8192, 32), (8192, 8), (1024, 97))
 WIDE_ROWS, WIDE_DIM = 96_000, 768
 K2_WIDE_SHAPES = ((4096, 96), (2048, 96))
 K2_INT8_WIDE_SHAPES = ((4096, 96), (1024, 96))
 INT8_ROWS, INT8_DIM, K2_INT8_SHAPE = 1_000_000, 96, (8192, 32)
 K1_INT4_B = 4096
+K1_DEG16_B, DEG16 = 4096, 16
 MODES = ("warm", "read", "write", "enqueue")
 THIS = Path(__file__).resolve().parents[2]
 #: the conversion instructions `sass_op_counts` counts
@@ -116,6 +123,35 @@ def sass_op_counts(library: Path, ops=CONVERSIONS) -> dict[str, dict]:
             for name, c in zip(names, counts.values())}
 
 
+def time_ms(fn, mode: str, reps: int, flush) -> float:
+    """Median over `reps` of the CUDA-event time of one call of `fn` (ms),
+    after three unmeasured calls, under `mode` (module docstring); `flush`
+    is the FLUSH_BYTES buffer the cold modes read or write."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if mode == "read":
+            flush.sum()
+        elif mode == "write":
+            flush.zero_()
+        if mode != "enqueue":
+            torch.cuda._sleep(SPIN_CYCLES)
+        else:
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _worker(tree: str, reps: int, dump: str) -> None:
     """Runs in a child process with `tree` first on sys.path; prints the
     timings as JSON and saves one output per case to `dump`."""
@@ -130,29 +166,6 @@ def _worker(tree: str, reps: int, dump: str) -> None:
     dev = torch.device("cuda")
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
-    def time_ms(fn, mode: str) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            if mode == "read":
-                flush.sum()
-            elif mode == "write":
-                flush.zero_()
-            if mode != "enqueue":
-                torch.cuda._sleep(SPIN_CYCLES)
-            else:
-                torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     g = torch.Generator(device=dev).manual_seed(2024)
     out, outputs = [], {}
 
@@ -161,7 +174,7 @@ def _worker(tree: str, reps: int, dump: str) -> None:
         outputs[f"{kernel} {list(shape)}"] = fn()
         for mode in MODES:
             out.append(dict(kernel=kernel, shape=list(shape), mode=mode,
-                            bytes=nbytes, ms=time_ms(fn, mode)))
+                            bytes=nbytes, ms=time_ms(fn, mode, reps, flush)))
 
     big = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(big)
@@ -169,7 +182,8 @@ def _worker(tree: str, reps: int, dump: str) -> None:
             ("stream read (sum)", lambda: big.view(torch.float32).sum(), 1),
             ("stream copy", lambda: dst.copy_(big), 2)):
         out.append(dict(kernel=name, shape=[big.numel()], mode="warm",
-                        bytes=moved * big.numel(), ms=time_ms(fn, "warm")))
+                        bytes=moved * big.numel(),
+                        ms=time_ms(fn, "warm", reps, flush)))
     del big, dst
     pay = torch.randint(-127, 128, (N_NODES, DEG, D_PAD), dtype=torch.int8,
                         device=dev, generator=g)
@@ -180,16 +194,17 @@ def _worker(tree: str, reps: int, dump: str) -> None:
     meta = torch.cat([ids, norms], dim=1)
     del ids, norms
     scale = torch.tensor([0.02], device=dev)
-    for b in K1_SHAPES:
-        nodes = torch.randint(0, N_NODES, (b, 2), dtype=torch.int32,
-                              device=dev, generator=g)
+    for label, b, e, n, slots in K1_SHAPES:
+        nodes = torch.randint(0, n, (b, e), dtype=torch.int32, device=dev,
+                              generator=g)
         q8 = torch.randint(-127, 128, (b, D_PAD), dtype=torch.int8,
                            device=dev, generator=g)
         qn = torch.rand(b, device=dev, generator=g) * 100
-        args = (nodes, meta, pay, q8, qn, scale, True)
-        nbytes = (int(torch.unique(nodes).numel()) * (DEG * D_PAD + 8 * DEG)
-                  + b * (D_PAD + 4) + b * 2 * 4 + b * 2 * DEG * 8)
-        case("packed_score", [b, 2, DEG, D_PAD], nbytes,
+        args = (nodes, meta[:n], pay[:n], q8, qn, scale, True, slots)
+        k = slots or DEG
+        nbytes = (int(torch.unique(nodes).numel()) * (k * D_PAD + 8 * k)
+                  + b * (D_PAD + 4) + b * e * 4 + b * e * k * 8)
+        case(f"packed_score{label}", [b, e, DEG, D_PAD], nbytes,
              lambda: packed_score(*args))
     # bits=4: the first half of each slab row's bytes as nibble pairs, a
     # bf16 query row of 2 x 64 components
@@ -208,6 +223,26 @@ def _worker(tree: str, reps: int, dump: str) -> None:
     case("packed_score bits=4", [b, 2, DEG, stored], nbytes,
          lambda: packed_score(*args4))
     del pay4, meta
+    # the refined half-degree payload: deg 16, its own meta row
+    pay16 = torch.randint(-127, 128, (N_NODES, DEG16, D_PAD),
+                          dtype=torch.int8, device=dev, generator=g)
+    meta16 = torch.cat([
+        torch.randint(0, N_NODES, (N_NODES, DEG16), dtype=torch.int32,
+                      device=dev, generator=g),
+        torch.randint(0, 1 << 21, (N_NODES, DEG16), dtype=torch.int32,
+                      device=dev, generator=g)], dim=1)
+    b = K1_DEG16_B
+    nodes = torch.randint(0, N_NODES, (b, 2), dtype=torch.int32, device=dev,
+                          generator=g)
+    q8 = torch.randint(-127, 128, (b, D_PAD), dtype=torch.int8, device=dev,
+                       generator=g)
+    qn = torch.rand(b, device=dev, generator=g) * 100
+    args16 = (nodes, meta16, pay16, q8, qn, scale, True)
+    nbytes = (int(torch.unique(nodes).numel()) * (DEG16 * D_PAD + 8 * DEG16)
+              + b * (D_PAD + 4) + b * 2 * 4 + b * 2 * DEG16 * 8)
+    case("packed_score deg=16", [b, 2, DEG16, D_PAD], nbytes,
+         lambda: packed_score(*args16))
+    del pay16, meta16
     rows = torch.randn((N_ROWS, DIM), device=dev, generator=g)
     ones = torch.ones(N_ROWS, device=dev)
     for b, k in K2_SHAPES:

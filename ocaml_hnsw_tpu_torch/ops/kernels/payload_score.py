@@ -29,22 +29,29 @@ import torch
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.utils import round_up
 
-#: stages of each warp's ring, and warps per block (csrc/payload_score.cu:
-#: two stages and ~24 resident warps per SM timed best on an H100)
-STAGES = 2
+#: warps per block (csrc kMaxWarps)
 WARPS = 4
+#: stages of each warp's ring (csrc/payload_score.cu: one item armed ahead
+#: of the one it scores timed as fast as any ring on an H100, whatever the
+#: call's items per warp)
+STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """Shape of the kernel's shared-memory rings (csrc/payload_score.cu):
     each of a block's `warps` warps owns `stages` stages of `stage_bytes`,
-    holding one item's slab prefix, query row and (when `meta_in_ring`)
-    whole meta row."""
+    each holding one item's slab prefix and (when `meta_in_ring`) its whole
+    meta row, and `query_slots` query rows, in `warp_bytes`; it keeps one
+    item armed ahead of the one it scores (two or more stages: the next item
+    is armed when one lands; one: the stage is re-armed after its item is
+    scored)."""
 
     stages: int
     warps: int
     stage_bytes: int
+    query_slots: int
+    warp_bytes: int
     smem_bytes: int
     meta_in_ring: bool
 
@@ -59,28 +66,57 @@ def query_bytes(d_pad: int, bits: int) -> int:
     return d_pad if bits == 8 else 4 * d_pad
 
 
+def query_slots(stages: int, e: int) -> int:
+    """Query rows a warp keeps: as many as the queries that `stages`
+    consecutive items of E per query can belong to (the items in flight and
+    the one being scored), so a row is never overwritten while read."""
+    return -(-(stages - 1) // e) + 1
+
+
 @functools.lru_cache(maxsize=None)
-def launch_plan(deg: int, d_pad: int, meta_aligned: bool = True,
+def launch_plan(e: int, deg: int, d_pad: int, meta_aligned: bool = True,
                 slots: int | None = None, bits: int = 8) -> LaunchPlan:
-    """Ring shape from the item size (the first `slots` rows of a node's
-    [deg, d_pad]-byte slab, the query row, the meta row): `STAGES` stages
-    per warp and up to `WARPS` warps per block, as many as fit a block's
-    227 KiB (one stage per warp for items over half of it).  The meta row
-    rides in the ring when it can be one bulk copy (16-byte multiple,
-    aligned base); otherwise the warp reads it from device memory."""
+    """Ring shape for a call of E expanded nodes per query from the item
+    size: the first `slots` rows of a node's [deg, d_pad]-byte slab and,
+    when it can be one bulk copy (16-byte multiple, aligned base), the meta
+    row (else the warp reads it from device memory); E sets the query
+    slots.  STAGES stages per warp, whatever the call's size; one stage,
+    re-armed after scoring, when two do not fit.
+    Up to WARPS warps per block, as many as fit 227 KiB.  Raises ValueError
+    if one stage does not fit."""
     slots = deg if slots is None else slots
     meta_in_ring = meta_aligned and (8 * deg) % 16 == 0
-    stage = round_up(slots * d_pad + query_bytes(d_pad, bits)
-                     + (8 * deg if meta_in_ring else 0), 128)
-    room = _lib.SMEM_LIMIT - _header_bytes(WARPS * STAGES)
-    stages = min(STAGES, room // stage)
-    if stages < 1:
-        raise ValueError(f"packed_score: a [{deg}, {d_pad}] slab does not fit "
-                         "in one block's shared memory")
-    warps = min(WARPS, room // (stage * stages))
-    return LaunchPlan(stages, warps, stage,
-                      _header_bytes(warps * stages) + warps * stages * stage,
-                      meta_in_ring)
+    stage = round_up(slots * d_pad + (8 * deg if meta_in_ring else 0), 128)
+    q_bytes = query_bytes(d_pad, bits)
+    for stages in range(STAGES, 0, -1):
+        slots_q = query_slots(stages, e)
+        warp = round_up(stages * stage + slots_q * q_bytes, 128)
+        for warps in range(WARPS, 0, -1):
+            smem = _header_bytes(warps * stages) + warps * warp
+            if smem <= _lib.SMEM_LIMIT:
+                return LaunchPlan(stages, warps, stage, slots_q, warp, smem,
+                                  meta_in_ring)
+    raise ValueError(f"packed_score: a [{deg}, {d_pad}] slab does not fit "
+                     "in one block's shared memory")
+
+
+def kernel_instance(d_pad: int, bits: int) -> str:
+    """The template instance of csrc's kernel a call at this d_pad and bits
+    launches (as `sass_op_counts` names it)."""
+    nvec = {(128, 8): 8, (64, 4): 4}.get((d_pad, bits), 0)
+    return f"packed_score_kernel<{nvec}, {bits}>"
+
+
+def occupancy(plan: LaunchPlan, d_pad: int, bits: int) -> int:
+    """Blocks of this plan that one SM of the current card holds at once
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`, as the launch asks)."""
+    import ctypes
+
+    per_sm = ctypes.c_int(0)
+    _lib.check(_lib.library().ohnsw_packed_score_occupancy(
+        d_pad, bits, plan.warps, plan.smem_bytes, ctypes.byref(per_sm)),
+        "packed_score occupancy")
+    return per_sm.value
 
 
 def nibble_unpack(v):
@@ -171,7 +207,7 @@ def packed_score(nodes, meta, pay, q8, qn, scale, needs_norms: bool,
                          device=pay.device)
     if b * e * slots == 0:
         return cand_ids, cand_d
-    plan = launch_plan(deg, d_pad, meta.data_ptr() % 16 == 0, slots, bits)
+    plan = launch_plan(e, deg, d_pad, meta.data_ptr() % 16 == 0, slots, bits)
     lib = _lib.library()
     with torch.cuda.device(pay.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -179,7 +215,8 @@ def packed_score(nodes, meta, pay, q8, qn, scale, needs_norms: bool,
             nodes.data_ptr(), meta.data_ptr(), pay.data_ptr(), q8.data_ptr(),
             qn.data_ptr(), scale.data_ptr(), cand_ids.data_ptr(),
             cand_d.data_ptr(), b, e, deg, d_pad, int(needs_norms), slots,
-            bits, plan.stages, plan.warps, plan.stage_bytes, plan.smem_bytes,
+            bits, plan.stages, plan.warps, plan.stage_bytes,
+            plan.query_slots, plan.warp_bytes, plan.smem_bytes,
             int(plan.meta_in_ring), stream)
     _lib.check(status, "packed_score")
     packed_score.launches += 1

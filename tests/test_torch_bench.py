@@ -24,7 +24,9 @@ from ocaml_hnsw_tpu.ops.quantize import quantize_rows as jax_quantize_rows
 from ocaml_hnsw_tpu.oracle.bruteforce import bruteforce_knn, recall
 
 from ocaml_hnsw_tpu_torch.bench import __main__ as cli
-from ocaml_hnsw_tpu_torch.bench import datasets, harness, kernel_race
+from ocaml_hnsw_tpu_torch.bench import (
+    datasets, harness, k1_timeline, kernel_race,
+)
 from ocaml_hnsw_tpu_torch.models.flat import flat_search
 
 # One torch thread: under pytest-xdist every worker's default pool (one
@@ -172,6 +174,44 @@ def test_count_sass_ops():
         "_ZN12_GLOBAL__N_117gather_vec_kernelIaLb1ELb1ELi1EEEvv":
             {"I2F": 2, "I2FP": 1},
         "_Z3foov": {"I2F": 0, "I2FP": 0}}
+
+
+def test_k1_timeline_stamps_fit_the_kernel():
+    """k1_timeline.py's stamp patch applies to the shipped K1 source: every
+    stamp once, at a line of the kernel it names; a hunk that no longer fits
+    raises."""
+    src = (k1_timeline.HERE.parent / "csrc" / "payload_score.cu").read_text()
+    patch = (k1_timeline.HERE / "k1_stamps.patch").read_text()
+    out = k1_timeline.apply_patch(src, patch)
+    stamps = [line.strip() for line in out.splitlines() if "K1_STAMP(" in line]
+    assert stamps == ["K1_STAMP(0);", "K1_STAMP(1);",
+                      "if (i < 6) K1_STAMP(2 + 2 * i);",
+                      "if (i < 6) K1_STAMP(3 + 2 * i);",
+                      "if (i == count - 1) K1_STAMP(14);", "K1_STAMP(15);"]
+    assert "".join(line for line in out.splitlines(keepends=True)
+                   if "K1_STAMP(" not in line) == src
+    with pytest.raises(ValueError, match="does not fit"):
+        k1_timeline.apply_patch(src.replace("mbar_wait(&ring", "wait(&r"),
+                                patch)
+
+
+def test_k1_timeline_summarize():
+    """Two warps on two SMs, two items each: the start, id, landing,
+    scoring and exit offsets the report reads from their stamps."""
+    buf = torch.zeros((3, k1_timeline.SLOTS, 2), dtype=torch.int64)
+    for w, (t0, sm) in enumerate(((1000, 5), (1100, 7))):
+        buf[w, 0] = torch.tensor([t0, sm])
+        for k, dt in ((1, 50), (2, 400), (3, 500), (4, 700), (5, 760),
+                      (14, 760), (15, 800)):
+            buf[w, k, 0] = t0 + dt
+    s = k1_timeline.summarize(buf, 4)  # row 2: a warp that never ran
+    assert (s["warps"], s["sms"], s["items_per_warp"]) == (2, 2, 2.0)
+    assert s["span_ns"] == 900 and s["ids_ns"]["p50"] == 50
+    assert s["first_landed_ns"]["max"] == 350
+    assert s["later_wait_ns"]["p50"] == 200  # item 1 landed 200 after 0
+    assert s["score_ns"]["n"] == 4 and s["score_ns"]["max"] == 100
+    assert s["last_item_to_exit_ns"]["p50"] == 40
+    assert s["exit_at_ns"]["max"] == 900
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

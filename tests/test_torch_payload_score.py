@@ -29,7 +29,8 @@ from ocaml_hnsw_tpu_torch.models.packed import (
 )
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
-    WARPS, launch_plan, nibble_unpack, packed_score, packed_score_plain,
+    STAGES, WARPS, kernel_instance, launch_plan, nibble_unpack,
+    packed_score, packed_score_plain, query_slots,
 )
 
 # One torch thread: under pytest-xdist every worker's default pool (one
@@ -200,21 +201,39 @@ def test_plain_int4_every_nibble_pair_is_exact(needs_norms):
     np.testing.assert_allclose(cand_d.numpy(), want.numpy(), rtol=1e-6)
 
 
+def _header(barriers: int) -> int:
+    return -(-barriers * 8 // 128) * 128
+
+
 class TestLaunchPlan:
     """The ring shape csrc/payload_score.cu is launched with."""
+
+    @staticmethod
+    def _holds(p, deg, d_pad, slots, bits, e):
+        """Every plan: the block fits, a stage holds an item's slab prefix
+        and (in the ring) meta row, a warp's share holds its stages and
+        query slots, the header its warps x stages mbarriers."""
+        assert p.smem_bytes <= _lib.SMEM_LIMIT
+        assert 1 <= p.stages <= STAGES
+        assert 1 <= p.warps <= WARPS
+        item = slots * d_pad + (8 * deg if p.meta_in_ring else 0)
+        assert p.stage_bytes == -(-item // 128) * 128
+        q_bytes = d_pad if bits == 8 else 4 * d_pad
+        assert p.query_slots == query_slots(p.stages, e)
+        assert p.warp_bytes % 128 == 0
+        assert p.warp_bytes >= p.stages * p.stage_bytes \
+            + p.query_slots * q_bytes
+        assert _header(p.warps * p.stages) >= 8 * p.warps * p.stages
+        assert p.smem_bytes == _header(p.warps * p.stages) \
+            + p.warps * p.warp_bytes
 
     @pytest.mark.parametrize("deg,d_pad", [(32, 128), (24, 128), (48, 128),
                                            (33, 128), (32, 768), (64, 1024),
                                            (128, 1024)])
     def test_ring_fits_and_holds_an_item(self, deg, d_pad):
-        p = launch_plan(deg, d_pad)
-        assert p.smem_bytes <= _lib.SMEM_LIMIT
-        assert 1 <= p.stages and 1 <= p.warps <= WARPS
+        p = launch_plan(2, deg, d_pad)
+        self._holds(p, deg, d_pad, deg, 8, 2)
         assert p.meta_in_ring == (deg % 2 == 0)  # 8·deg bytes, 16-aligned
-        item = deg * d_pad + d_pad + (8 * deg if p.meta_in_ring else 0)
-        assert p.stage_bytes >= item and p.stage_bytes % 128 == 0
-        header = -(-p.warps * p.stages * 8 // 128) * 128
-        assert p.smem_bytes == header + p.warps * p.stages * p.stage_bytes
 
     @pytest.mark.parametrize("deg,d_pad,slots,bits", [
         (32, 128, 16, 8), (32, 128, 1, 8), (33, 128, 5, 8), (32, 64, None, 4),
@@ -223,27 +242,80 @@ class TestLaunchPlan:
     def test_options_ring_fits(self, deg, d_pad, slots, bits):
         """slots: only that prefix of the slab is staged (the meta row stays
         whole); bits=4: d_pad stored bytes per row, a bf16 query row of
-        2·d_pad components (4·d_pad bytes)."""
-        p = launch_plan(deg, d_pad, True, slots, bits)
-        full = launch_plan(deg, d_pad, True, None, bits)
-        assert p.smem_bytes <= _lib.SMEM_LIMIT and 1 <= p.warps <= WARPS
-        q_bytes = d_pad if bits == 8 else 4 * d_pad
-        item = ((deg if slots is None else slots) * d_pad + q_bytes
-                + (8 * deg if p.meta_in_ring else 0))
-        assert p.stage_bytes == -(-item // 128) * 128
+        2·d_pad components (4·d_pad bytes) in the query slots."""
+        p = launch_plan(2, deg, d_pad, True, slots, bits)
+        full = launch_plan(2, deg, d_pad, True, None, bits)
+        self._holds(p, deg, d_pad, deg if slots is None else slots, bits, 2)
         assert p.stage_bytes <= full.stage_bytes
         assert p.meta_in_ring == (deg % 2 == 0)
 
     def test_int4_main_shape(self):
-        # B=4096, E=2, deg=32, d=128: a 2 KB nibble slab, 256 B bf16 query
-        p = launch_plan(32, 64, True, None, 4)
-        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 2560)
+        # F3: E=2, deg=32, d=128: a 2 KB nibble slab and its meta row per
+        # stage (the 256 B bf16 query row in a query slot), two stages
+        p = launch_plan(2, 32, 64, True, None, 4)
+        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 2304)
+        assert (p.query_slots, p.smem_bytes) == (2, 20608)
 
     def test_main_shape_and_misaligned_meta(self):
-        p = launch_plan(32, 128)
-        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 4480)
-        assert not launch_plan(32, 128, meta_aligned=False).meta_in_ring
+        # main: 4 KB slab + 256 B meta row per stage, the query row in a
+        # query slot
+        p = launch_plan(2, 32, 128)
+        assert (p.stages, p.warps, p.stage_bytes) == (2, 4, 4352)
+        assert not launch_plan(2, 32, 128, meta_aligned=False).meta_in_ring
 
     def test_slab_too_large_raises(self):
         with pytest.raises(ValueError, match="does not fit"):
-            launch_plan(128, 2048)
+            launch_plan(2, 128, 2048)
+
+    @pytest.mark.parametrize("e,deg,d_pad,slots,bits", [
+        (2, 32, 128, None, 8),   # main B=4096 and 8192, E's shard step
+        (8, 32, 128, None, 8),   # C's construction beam, B=1024 E=8
+        (2, 32, 128, 16, 8),     # F2 deg_limit=16
+        (2, 32, 64, None, 4),    # F3 bits=4
+        (2, 16, 128, None, 8),   # F4 refined deg-16 payload
+        (1, 24, 128, None, 8), (3, 33, 128, 9, 4),
+        (2, 128, 1024, None, 8),  # a 128 KB slab: one stage
+    ])
+    def test_k1_row_plans(self, e, deg, d_pad, slots, bits):
+        """Every K1 row: two stages, whatever the call's items per warp
+        (one stage, re-armed after scoring, where two do not fit a block),
+        as many warps as fit up to WARPS."""
+        p = launch_plan(e, deg, d_pad, True, slots, bits)
+        self._holds(p, deg, d_pad, deg if slots is None else slots, bits, e)
+        assert p.stages == (1 if d_pad * deg > 100_000 else STAGES)
+        more = _header((p.warps + 1) * p.stages) + (p.warps + 1) * p.warp_bytes
+        assert p.warps == WARPS or more > _lib.SMEM_LIMIT
+
+    @pytest.mark.parametrize("e", [1, 2, 3, 8])
+    def test_query_slots_cover_the_items_in_flight(self, e):
+        """Any `stages` consecutive items of a warp's range belong to at
+        most query_slots(stages, e) queries, wherever the range starts in
+        a query: so a query row is never overwritten while read."""
+        for stages in range(1, 9):
+            most = max(len({(off + k) // e for k in range(i, i + stages)})
+                       for off in range(e) for i in range(3 * e))
+            assert query_slots(stages, e) == most
+
+    def test_kernel_instances(self):
+        assert kernel_instance(128, 8) == "packed_score_kernel<8, 8>"
+        assert kernel_instance(256, 8) == "packed_score_kernel<0, 8>"
+        assert kernel_instance(64, 4) == "packed_score_kernel<4, 4>"
+        assert kernel_instance(384, 4) == "packed_score_kernel<0, 4>"
+
+
+def test_cpu_wrapper_stays_plain_at_16_slots_and_int4(packs):
+    """Half-degree slots (at most 16: the kernel's two lanes per row) and
+    bits=4 on CPU tensors: still the plain version, no launch."""
+    _, tp, nodes, q8, qn = packs
+    q16 = (q8.float() + 0.25).to(torch.bfloat16)
+    pay4 = tp.pay[:, :, :tp.d_pad // 2].contiguous()
+    half = tp.deg // 2
+    assert half <= 16
+    before = packed_score.launches
+    for args in ((nodes, tp.meta, tp.pay, q8, qn, tp.scale, True, half, 8),
+                 (nodes, tp.meta, pay4, q16, qn, tp.scale, True, None, 4),
+                 (nodes, tp.meta, pay4, q16, qn, tp.scale, False, half, 4)):
+        a = packed_score(*args)
+        b = packed_score_plain(*args)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert packed_score.launches == before
