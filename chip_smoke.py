@@ -36,6 +36,11 @@ their results against exact ground truth computed on the card:
      card or two sharing a single card: SIFT-shaped rows cut to 200k, an
      add of 60k and classic queries, an add of the other 140k and packed
      queries (recall, QPS), save -> load, a tombstone, `get_items`.
+  G. the build options, after C: G1 `bulk_build(scan_dtype="int8")` over
+     the main path's 1M rows (every kNN table from the flat engine's exact
+     int8 scan, reranked in f32 by K2), queried by the packed engine at the
+     main knobs; G2 `models.build.build` and BuildStates with a capped
+     Alg-4 admit scan (`select_scan`) at phase A's shapes.
 
     python3 chip_smoke.py                 # the whole run
     python3 chip_smoke.py --kernels-only  # build + kernel checks on
@@ -43,6 +48,8 @@ their results against exact ground truth computed on the card:
     python3 chip_smoke.py --phase-f       # kernel checks, the main path's
                                           # build and queries, phase F, stop
     python3 chip_smoke.py --phase-b8      # build, then phase B8 alone, stop
+    python3 chip_smoke.py --phase-g       # build, the main path's data,
+                                          # then phase G alone, stop
     python3 chip_smoke.py --profile-dir DIR  # also write the profiled
                                              # windows' op tables to DIR
 
@@ -98,7 +105,7 @@ import time
 import numpy as np
 import torch
 
-from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex, Index
+from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex, HnswConfig, Index
 from ocaml_hnsw_tpu_torch.bench import harness as harness_mod
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
 from ocaml_hnsw_tpu_torch.bench.harness import device_ground_truth, recall_of
@@ -174,6 +181,12 @@ F_RAISED = dict(deg_limit=16, max_iters=2 * QUERY_KNOBS["max_iters"])
 F_GRID_N, F_GRID_SEED, F_INT4_SLACK = 100_000, 17, 0.02
 F_REFINE_DEG = 16
 F_REFINE_MI = (QUERY_KNOBS["max_iters"] * 5) // 4
+#: phase G: G2's admit-scan caps at phase A's shapes: 64 (the JAX
+#: package's measured cap, here the whole efC=64 beam) and 20 (64/200 of
+#: the beam, the fraction that cap is of JAX's 1M efC=200 build)
+G_SELECT_SCANS = (64, 20)
+#: the JAX package's comment on select_scan=64 (`models/build.py:1121-1123`)
+G_JAX_SCAN_DELTA = -0.004
 #: paired QPS runs of an option against its full-byte pack: pairs, and the
 #: measure_qps warm-up and timed batches of each run
 F_PAIRS, F_PAIR_WARMUP, F_PAIR_REPS = 10, 1, 2
@@ -1654,6 +1667,156 @@ def phase_c(index, data, queries, smi: str, flush, gen) -> tuple[dict, list]:
     return out, rows
 
 
+# --------------------------------------------- phase G: the build options
+def phase_g(x, queries, qps_queries, gt, main: dict | None, smi: str,
+            flush) -> tuple[dict, dict, list, list]:
+    """G1: `bulk_build(scan_dtype="int8")` over main's rows, then the
+    packed engine at main's knobs over that graph (recall against main's
+    ground truth, beside main's bf16 build when `main` holds its numbers).
+    G2: `models.build.build` and BuildStates with `select_scan` at phase
+    A's shapes.  Returns (summary, launches by phase, K1 rows, K2 rows)."""
+    dev = x.device
+    k = QUERY_KNOBS["k"]
+    cfg = HnswConfig(dim=DIM, M=M, ef_construction=EFC)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scans = []  # the scan dtype of each kNN table's flat
+    with recording(bulk_mod, "knn_table",
+                   want=lambda a: scans.append(a[0].scan.dtype)), \
+            recording(flat_mod, "gather_dists",
+                      want=lambda a: a[0].shape[0] >= N
+                      and a[3].shape[0] == 1024, keep=1) as knn_calls:
+        g = bulk_mod.bulk_build(x, cfg, scan_dtype="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches()
+    require_launches("G1 int8 bulk build", build_launches, ["gather_dists"])
+    n_tables = len(scans)
+    lv = g.levels[:N].cpu().numpy()
+    want = 1 + sum(int((lv >= l).sum() >= 2)  # a 1-node level has no table
+                   for l in range(1, int(lv.max()) + 1))
+    if set(scans) != {torch.int8} or n_tables != want:
+        raise AssertionError(f"G1: {n_tables} kNN tables (want {want}) "
+                             f"scanned {set(scans)}")
+    (knn_call,) = knn_calls
+    del knn_calls
+
+    pk = packed_mod.pack_graph(g, "l2")
+    seeds = search_mod.build_seed_index(g, "l2")
+    q = torch.from_numpy(queries).to(dev)
+    reset_launches()
+    with recording(packed_mod, "packed_score", keep=1) as k1_calls:
+        ids, d = packed_mod.knn_search_packed(g, pk, q, metric="l2",
+                                              seeds=seeds, seed_e=8,
+                                              **QUERY_KNOBS)
+    torch.cuda.synchronize()
+    query_launches = read_launches()
+    require_launches("G1 query batch", query_launches,
+                     ["packed_score", "gather_dists"])
+    labels, dists = ids.cpu().numpy(), d.cpu().numpy()
+    check_result(labels, dists, N_QUERIES, k)
+    exact = torch.sum((x[ids.long()] - q[:, None, :]) ** 2, dim=-1)
+    np.testing.assert_allclose(dists, exact.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    rec = recall_of(labels, gt)
+    qq = torch.from_numpy(qps_queries).to(dev)
+
+    def batch():
+        packed_mod.knn_search_packed(g, pk, qq, metric="l2", seeds=seeds,
+                                     seed_e=8, **QUERY_KNOBS)
+        torch.cuda.synchronize()
+
+    batch()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch()
+        times.append(time.perf_counter() - t0)
+    qps = QPS_BATCH / statistics.median(times)
+    if main is None:
+        vs_main = "main not run (--phase-g)"
+    else:
+        vs_main = (f"main's bf16 build {main['build_s']:.2f} s = "
+                   f"{N / main['build_s']:.0f} vectors/s, recall@{k} "
+                   f"{main['recall']:.4f}: difference {rec - main['recall']:+.4f}")
+    say(f"[G1 int8 bulk build] {N}x{DIM} M={M} efC={EFC}: {build_s:.2f} s = "
+        f"{N / build_s:.0f} vectors/s, {n_tables} kNN tables all int8-scanned;"
+        f" launches {json.dumps(build_launches)}; packed queries at the main "
+        f"knobs: recall@{k} {rec:.4f} (floor {RECALL_FLOOR}), QPS {qps:.0f} "
+        f"(median of 3 batches of {QPS_BATCH}, queries on the card), batch "
+        f"launches {json.dumps(query_launches)}; {vs_main} [{smi}]")
+    if rec < RECALL_FLOOR:
+        raise AssertionError(f"G1 recall@{k} {rec:.4f} < {RECALL_FLOOR}")
+    k1_rows = [k1_case("G1 query step real", k1_calls[0])]
+    del k1_calls, g, pk, seeds, qq
+    vec, sc, qk, kid, metric = knn_call
+    k2_rows = [k2_case("G1 int8 kNN-table rerank real", vec, sc, qk, kid,
+                       metric, flush, time_it=True)]
+    del knn_call, vec, sc, qk, kid
+
+    # ---- G2: build() and the capped admit scan at phase A's shapes
+    data_a = clustered(A_N, A_DIM, n_clusters=64, seed=7)
+    q_a = torch.from_numpy(queries_like(data_a, N_QUERIES, seed=8)).to(dev)
+    gt_a = device_ground_truth(torch.from_numpy(data_a).to(dev), q_a, 10,
+                               "l2")
+    cfg_a = HnswConfig(dim=A_DIM, M=A_M, ef_construction=A_EFC)
+
+    def run(label: str, select_scan):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if select_scan is None:
+            ga = build_mod.build(data_a, cfg_a, round_size=A_RS, device=DEV)
+        else:
+            st = build_mod.BuildState(cfg_a, A_N, round_size=A_RS, device=DEV)
+            st.select_scan = select_scan
+            st.add(data_a)
+            ga = st.graph
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = read_launches()
+        require_launches(label, launches, ["gather_dists"])
+        seeds_a = search_mod.build_seed_index(ga, "l2")
+        ids_a, d_a = search_mod.knn_search(ga, q_a, k=10, ef=A_EF,
+                                           metric="l2", seeds=seeds_a,
+                                           compact_k=COMPACT_K)
+        check_result(ids_a.cpu().numpy(), d_a.cpu().numpy(), N_QUERIES, 10)
+        r = recall_of(ids_a.cpu().numpy(), gt_a)
+        if r < A_FLOOR:
+            raise AssertionError(f"{label} recall@10 {r:.4f} < {A_FLOOR}")
+        return dict(build_s=s, vps=A_N / s, recall=r, launches=launches), ga
+
+    g2, base = run("G2 build()", None)
+    runs = {}
+    for cap in G_SELECT_SCANS:
+        runs[cap], ga = run(f"G2 select_scan={cap}", cap)
+        runs[cap]["same_graph"] = bool(torch.equal(ga.adj0, base.adj0)
+                                       and torch.equal(ga.adj_up, base.adj_up))
+    del base, ga
+    say(f"[G2 build()] random10k {A_N}x{A_DIM} M={A_M} efC={A_EFC} round "
+        f"{A_RS}: {g2['build_s']:.2f} s = {g2['vps']:.0f} vectors/s, recall@10"
+        f" {g2['recall']:.4f} at ef={A_EF} (floor {A_FLOOR}); launches "
+        f"{json.dumps(g2['launches'])} [{smi}]")
+    for cap, r in runs.items():
+        say(f"[G2 select_scan={cap}] {r['build_s']:.2f} s = {r['vps']:.0f} "
+            f"vectors/s, recall@10 {r['recall']:.4f}: "
+            f"{r['recall'] - g2['recall']:+.4f} against build() (the JAX "
+            f"package measured {G_JAX_SCAN_DELTA:+.3f} for select_scan=64 at "
+            f"1M, efC=200); graph identical to build()'s: {r['same_graph']}; "
+            f"launches {json.dumps(r['launches'])} [{smi}]")
+    out = dict(int8_build_s=build_s, int8_build_vps=N / build_s,
+               int8_recall=rec, int8_qps=qps, build=g2,
+               select_scan=runs)
+    launches = {"G_int8_bulk_build": build_launches,
+                "G_query_batch": query_launches,
+                "G_build": g2["launches"],
+                "G_select_scan_build": runs[G_SELECT_SCANS[0]]["launches"],
+                **{f"G_select_scan{cap}_build": runs[cap]["launches"]
+                   for cap in G_SELECT_SCANS[1:]}}
+    return out, launches, k1_rows, k2_rows
+
+
 # ------------------------------- phase D: the harness and the flat indexes
 def check_int8_scan(gen) -> None:
     """The int8 scan's integer dot against an int64 reference (an f64
@@ -2000,9 +2163,17 @@ def main(argv: list[str]) -> int:
         f"{time.perf_counter() - t0:.1f} s (host)")
     dev = DEV
     x = torch.from_numpy(data).to(dev)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
+    if "--phase-g" in argv:
+        t0 = time.perf_counter()
+        gt = device_ground_truth(x, torch.from_numpy(queries).to(dev),
+                                 QUERY_KNOBS["k"], "l2")
+        phase_g(x, queries, qps_queries, gt, None, smi, flush)
+        say(f"[G] phase took {time.perf_counter() - t0:.1f} s; --phase-g: "
+            "stop here")
+        return 0
     k1_rows = check_k1_edges(gen)
     k2_rows = check_k2_edges(x, gen)
-    flush = torch.zeros(FLUSH_BYTES // 4, device=dev)
 
     # ---- phases A and B: the incremental build and the classic engine
     phase_f_only = "--phase-f" in argv
@@ -2120,6 +2291,16 @@ def main(argv: list[str]) -> int:
     say(f"[C] phase took {time.perf_counter() - t0:.1f} s")
     del index
 
+    # ---- phase G: the build options (int8-scan bulk build, build(),
+    # select_scan), while main's rows are on the card
+    t0 = time.perf_counter()
+    g_out, g_launches, rows1, rows2 = phase_g(
+        x, queries, qps_queries, gt, dict(build_s=build_s, recall=rec), smi,
+        flush)
+    k1_rows += rows1
+    k2_rows += rows2
+    say(f"[G] phase took {time.perf_counter() - t0:.1f} s")
+
     # ---- phase D: the benchmark harness and the flat indexes
     t0 = time.perf_counter()
     check_int8_scan(gen)
@@ -2164,6 +2345,7 @@ def main(argv: list[str]) -> int:
         "E_classic_query_batch": e_out["launches_classic_batch"],
         "E_second_add": e_out["launches_second_add"],
         "E_packed_query_batch": e_out["launches_packed_batch"],
+        **g_launches,
     }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
     k1_ring = ("stages", "registers", "warps_per_sm", "items_per_warp")

@@ -12,4 +12,4 @@ from ocaml_hnsw_tpu_torch.api import BFIndex, FlatIndex, Index
 
 __version__ = "0.1.0"
 
-__all__ = ["BFIndex", "FlatIndex", "HnswConfig", "Index", "__version__"]
+__all__ = ["HnswConfig", "Index", "BFIndex", "FlatIndex", "__version__"]

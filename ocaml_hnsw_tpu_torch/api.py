@@ -29,6 +29,7 @@ import torch
 from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models.build import BuildState
 from ocaml_hnsw_tpu_torch.models.graph import GraphTensors, grow_graph
+from ocaml_hnsw_tpu_torch.models.search import knn_search
 from ocaml_hnsw_tpu_torch import io as index_io
 
 
@@ -271,8 +272,6 @@ class Index:
                 interleave=interleave if b % max(interleave, 1) == 0 else 1,
             )
         else:
-            from ocaml_hnsw_tpu_torch.models.search import knn_search
-
             if compact_k == "auto":
                 m0 = st.config.M_max0
                 compact_k = (3 * 4 * m0) // 4 if (

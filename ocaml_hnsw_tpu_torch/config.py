@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+#: built-in metrics; user metrics join via ops.metrics.register_metric
+METRICS = ("l2", "ip", "cosine")
 STORAGES = ("f32", "bf16", "int8")
 
 

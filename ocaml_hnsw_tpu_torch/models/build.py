@@ -138,18 +138,25 @@ def compact_by_mask(ids, d, mask, m: int):
 
 
 def select_neighbors(vectors, scales, norms, w_ids, w_d, m: int, metric: str,
-                     keep_pruned: bool, heuristic: bool = True):
+                     keep_pruned: bool, heuristic: bool = True,
+                     scan_limit: int | None = None):
     """Neighbor selection over beam results (sorted ascending): Alg 4
     diversity pruning (default) or Alg 3 plain nearest-M (heuristic=False).
-    Returns ids/d [B, m]."""
+    scan_limit: only the first `scan_limit` candidates are eligible for
+    admission, so only they are gathered and paired (the keep_pruned
+    backfill reads w_d alone).  Returns ids/d [B, m]."""
     valid = w_ids >= 0
     if not heuristic:  # Alg 3: the beam is distance-ascending already
         return compact_by_mask(w_ids, w_d, valid, m)
-    cvec = gather_dequant(vectors, scales, w_ids)
-    cnorm = norms[w_ids.clamp_min(0).long()]
+    k = w_ids.shape[1]
+    ke = k if scan_limit is None else min(k, scan_limit)
+    ids_e = w_ids[:, :ke]
+    cvec = gather_dequant(vectors, scales, ids_e)
+    cnorm = norms[ids_e.clamp_min(0).long()]
     pair = pairwise_dists(cvec, cnorm, metric)
     del cvec
-    sel = heuristic_admit(w_d, pair, valid, m, keep_pruned)
+    sel = heuristic_admit(w_d, pair, valid, m, keep_pruned,
+                          scan_limit=scan_limit)
     return compact_by_mask(w_ids, w_d, sel, m)
 
 
@@ -426,6 +433,7 @@ def insert_round(
     build_expand: int = 4,
     extend: bool = False,
     heuristic: bool = True,
+    select_scan: int | None = None,
 ) -> int:
     """One batched insertion round (Alg 1 for R points against the
     pre-round graph), in place on `graph`, `bank` and `packed`; returns the
@@ -436,7 +444,8 @@ def insert_round(
     winners) instead of the greedy-descent position.  With `packed`, the
     level-0 beam runs on the inline-int8 payload (K1), its W set is
     re-scored exactly (K2) and re-sorted, and the payload rows whose
-    adjacency changed are refreshed."""
+    adjacency changed are refreshed.  select_scan caps the level-0 Alg-4
+    admit scan at that many candidates (`select_neighbors`' scan_limit)."""
     r = new_vecs.shape[0]
     dev = graph.device
     sink0 = graph.n_cap - 1
@@ -617,7 +626,7 @@ def insert_round(
         c_ids, c_d = w_ids, w_d
     sel_ids, sel_d = select_neighbors(
         vectors, scales, norms, c_ids, c_d, m, metric, keep_pruned,
-        heuristic=heuristic)
+        heuristic=heuristic, scan_limit=select_scan)
     if packed is not None:
         from ocaml_hnsw_tpu_torch.models.packed import (
             quantize_payload_rows, refresh_payload_rows,
@@ -729,10 +738,25 @@ class BuildState:
         self.packed = None
         self._packed_build: bool | None = None
         self._pack_covered: float | None = None  # range the scale covers
+        # level-0 build-beam knobs, the JAX package's public attributes and
+        # defaults: the iteration cap and expansion width ("auto" resolves
+        # per path in _round_kwargs), the candidate compaction (3/4 of the
+        # 4·M_max0 ids a step expands, once those reach 128), the Alg-4
+        # admit-scan cap (None: the whole beam) and the opt-out of the bulk
+        # first add (False keeps incremental rounds for any first add)
+        self.build_mi: int | str | None = "auto"
+        self.build_expand: int | str = "auto"
+        self.build_ck: int | None = (
+            (3 * 4 * config.M_max0) // 4 if 4 * config.M_max0 >= 128 else None
+        )
+        self.select_scan: int | None = None
+        self.bulk_first_add: bool = True
         self._warned_seed_drop = False
 
     def _bulk_eligible(self, n_new: int) -> bool:
         cfg = self.config
+        if not self.bulk_first_add:
+            return False
         if self.host_n or n_new < self.BULK_THRESHOLD:
             return False
         # bulk passes run at index capacity: a sparse first add would pay
@@ -855,12 +879,18 @@ class BuildState:
         return self.packed
 
     def _round_kwargs(self) -> dict:
-        """insert_round's knobs.  The level-0 beam's iteration cap and
-        expansion width are the JAX package's "auto" values per path, and
-        its candidate compaction keeps 3/4 of the 4·M_max0 ids a step
-        expands once those reach 128."""
+        """insert_round's knobs, from the public attributes.  "auto" is the
+        JAX package's per-path value: the level-0 beam's iteration cap and
+        expansion width are 24 / 8 on the packed build, 48 / 4 on the
+        classic one."""
         cfg = self.config
         packed = bool(self._packed_build)
+        build_mi = self.build_mi
+        build_expand = self.build_expand
+        if build_mi == "auto":
+            build_mi = 24 if packed else 48
+        if build_expand == "auto":
+            build_expand = 8 if packed else 4
         return dict(
             efc=cfg.ef_construction,
             m=cfg.M,
@@ -869,11 +899,12 @@ class BuildState:
             metric=cfg.metric,
             keep_pruned=cfg.keep_pruned_connections,
             storage=cfg.storage,
-            build_mi=24 if packed else 48,
-            build_ck=(3 * cfg.M_max0 if 4 * cfg.M_max0 >= 128 else None),
-            build_expand=8 if packed else 4,
+            build_mi=build_mi,
+            build_ck=self.build_ck,
+            build_expand=build_expand,
             extend=cfg.extend_candidates,
             heuristic=cfg.select == "heuristic",
+            select_scan=self.select_scan,
         )
 
     def schedule(self, levels: np.ndarray, done: int) -> list:
@@ -985,3 +1016,16 @@ class BuildState:
                 )
                 self._warned_seed_drop = True
 
+
+
+def build(data, config: HnswConfig, max_elements: int | None = None,
+          round_size: int = 1024,
+          device: torch.device | str = "cuda") -> GraphTensors:
+    """Build a full index over `data` (host array or tensor) with one
+    `BuildState.add` on `device`, and return its graph."""
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data, dtype=np.float32)
+    state = BuildState(config, max_elements or data.shape[0],
+                       round_size=round_size, device=device)
+    state.add(data)
+    return state.graph

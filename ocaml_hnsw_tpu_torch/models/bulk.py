@@ -67,17 +67,34 @@ def bulk_workspace_bytes(n_cap: int, dim: int, m: int, m_max0: int,
 
 
 # --------------------------------------------------------------- flat loader
-def flat_from_rows(rows, metric: str, n_valid=None):
+#: rows one flat_add call takes while a flat is loaded for the kNN passes
+FLAT_CHUNK = 262144
+
+
+def _load_flat(flat, rows, n: int, chunk: int):
+    """Write rows [0, n) into `flat`, `chunk` rows per flat_add call (each
+    call makes its own f32 copy of the rows it quantizes)."""
+    chunk = max(1, min(chunk, flat.n_cap))
+    for i in range(0, n, chunk):
+        flat_add(flat, rows[i:i + chunk], i, min(chunk, n - i))
+    return flat
+
+
+def flat_from_rows(rows, metric: str, scan_dtype: str = "bf16",
+                   n_valid=None, chunk: int = FLAT_CHUNK):
     """Rows -> FlatTensors for the kNN passes (rerank rows f32, cosine rows
-    normalized).  `rows` may carry padding; n_valid caps the occupied count."""
+    normalized).  `rows` may carry padding; n_valid caps the occupied count.
+    scan_dtype: the flat engine's scan ("bf16", or "int8": the exact int8
+    dot of per-row quantized operands); `chunk` bounds the rows one
+    flat_add call quantizes."""
     from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 
     n = int(rows.shape[0]) if n_valid is None else int(n_valid)
     if get_metric(metric).normalize_add:
         rows = normalize_rows(rows.float())
     flat = empty_flat(rows.shape[1], max(int(rows.shape[0]), n, 1),
-                      device=rows.device)
-    return flat_add(flat, rows, 0, n)
+                      scan_dtype=scan_dtype, device=rows.device)
+    return _load_flat(flat, rows, n, chunk)
 
 
 # ------------------------------------------------------------------ base kNN
@@ -209,7 +226,7 @@ def _merge_rounds(vectors, scales, norms, fwd_ids, fwd_d, rev, rev_d,
 # ------------------------------------------------------------- upper level
 def _upper_level(dataf, vectors, scales, norms, row_ids, n_sub: int, *,
                  cap: int, m: int, m_max: int, metric: str,
-                 keep_pruned: bool, knn_k: int, batch: int):
+                 keep_pruned: bool, scan_dtype: str, knn_k: int, batch: int):
     """One upper layer over its node subset: flat load, kNN, Alg-4 select,
     reverse scatter, shrink merge.  row_ids i32[cap] holds the subset's
     global ids, -1 padded; returns the layer's rows i32[cap, m_max] in
@@ -221,7 +238,8 @@ def _upper_level(dataf, vectors, scales, norms, row_ids, n_sub: int, *,
     safe = row_ids.clamp_min(0).long()
     # dataf arrives normalized (cosine-style metrics), so rows are used as-is
     rows = torch.where(pad_row[:, None], 0.0, dataf[safe])
-    flat = flat_add(empty_flat(dim, cap, device=dev), rows, 0, n_sub)
+    flat = _load_flat(empty_flat(dim, cap, scan_dtype=scan_dtype, device=dev),
+                      rows, n_sub, FLAT_CHUNK)
     # kNN of every bucket row (self excluded)
     kk = max(1, min(knn_k, cap - 1 - 32))
     knn_ids, knn_d = knn_table(flat, rows, kk, metric,
@@ -257,7 +275,9 @@ def bulk_build(
     max_elements: int | None = None,
     knn_k: int = 64,
     batch: int = 1024,
+    scan_dtype: str = "bf16",
     levels=None,
+    verbose: bool = False,
     device: torch.device | str | None = None,
 ) -> GraphTensors:
     """Construct a full GraphTensors from the complete dataset (module
@@ -265,12 +285,17 @@ def bulk_build(
     to the tensor's own, and to "cuda" for a host array (raising when there
     is no CUDA device).  Deterministic for a fixed (data, config).
     `levels`: optional pre-sampled per-node levels (BuildState passes them
-    from its own stream).  Stage times go to this module's logger at INFO
-    (timed with a device sync only when that level is enabled)."""
+    from its own stream).  `scan_dtype` is the flat scan of every kNN table
+    (layer 0 and each upper level): "bf16", or "int8", whose candidates are
+    reranked in exact f32 (K2) as the bf16 scan's are.  `batch` is the
+    queries per kNN-table batch; its default differs from the JAX
+    package's 8192 (it bounds the [batch, N_cap] score block) and does not
+    change results.  Stage times go to this module's logger at INFO, and
+    are printed with verbose=True (timed with a device sync only then)."""
     from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
     from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 
-    timed = log.isEnabledFor(logging.INFO)
+    timed = verbose or log.isEnabledFor(logging.INFO)
     t_all = t0 = time.perf_counter()
 
     from ocaml_hnsw_tpu_torch.api import _resolve_device
@@ -282,12 +307,17 @@ def bulk_build(
         dev = _resolve_device(device if device is not None else "cuda")
         data = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
 
+    def report(msg: str) -> None:
+        log.info(msg)
+        if verbose:
+            print(msg, flush=True)
+
     def stage(msg):
         nonlocal t0
         if timed:
             _sync(dev)
             now = time.perf_counter()
-            log.info("bulk %s: %.3f s", msg, now - t0)
+            report(f"bulk {msg}: {now - t0:.3f} s")
             t0 = now
 
     n, dim = int(data.shape[0]), int(data.shape[1])
@@ -322,7 +352,7 @@ def bulk_build(
         else torch.zeros((n_cap,), dtype=torch.float32, device=dev)
 
     # ---- layer 0: kNN over everything, select, reverse, shrink
-    flat = flat_from_rows(dataf, metric)
+    flat = flat_from_rows(dataf, metric, scan_dtype=scan_dtype)
     knn_ids, knn_d = knn_table(flat, dataf, knn_k, metric, batch=batch)
     del flat
     knn_ids = torch.nn.functional.pad(knn_ids, (0, 0, 0, n_cap - n), value=-1)
@@ -368,7 +398,8 @@ def bulk_build(
         adj_l = _upper_level(
             dataf, vectors, scales, norms, row_ids, n_sub,
             cap=n_sub_cap, m=m, m_max=m_max, metric=metric,
-            keep_pruned=keep_pruned, knn_k=knn_k, batch=batch,
+            keep_pruned=keep_pruned, scan_dtype=scan_dtype, knn_k=knn_k,
+            batch=batch,
         )
         adj_up[arows] = adj_l[:n_sub]
         stage(f"layer {lvl} ({n_sub} nodes)")
@@ -396,5 +427,5 @@ def bulk_build(
     if timed:
         _sync(dev)
         total = time.perf_counter() - t_all
-        log.info("bulk total %.3f s = %.0f vectors/s", total, n / total)
+        report(f"bulk total {total:.3f} s = {n / total:.0f} vectors/s")
     return g

@@ -100,6 +100,10 @@ class UpperView(NamedTuple):
     levels: torch.Tensor  # i32[N_cap]
     level: int  # >= 1
 
+    @property
+    def deg(self) -> int:
+        return self.table.shape[1]
+
     def rows_of(self, safe_ids):
         """Arena row per node id (ids must be >= 0); sink row when the node
         has no row at this layer."""
@@ -135,9 +139,13 @@ def dense_upper(graph: GraphTensors, level: int) -> np.ndarray:
 
 
 def empty_graph(config: HnswConfig, max_elements: int,
-                device: torch.device | str) -> GraphTensors:
+                device: torch.device | str = "cuda") -> GraphTensors:
+    """An empty graph for `max_elements` rows on `device` (raises when
+    "cuda" is asked for and there is no CUDA device)."""
+    from ocaml_hnsw_tpu_torch.api import _resolve_device
     from ocaml_hnsw_tpu_torch.ops.quantize import storage_dtype
 
+    device = _resolve_device(device)
     n_cap = capacity(max_elements)
     t_cap = arena_capacity(max_elements, config.M)
 

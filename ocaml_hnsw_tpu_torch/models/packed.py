@@ -129,6 +129,11 @@ class PackedGraph:
         return self.meta.shape[0]
 
     @property
+    def chunks(self) -> int:
+        """The JAX package's C: chunk rows of `chunk_w` bytes per node."""
+        return self.deg * self.d_pad // self.chunk_w
+
+    @property
     def d_pad(self) -> int:
         """Stored BYTES per neighbour (d_pad/2 under bits=4), as the JAX
         package's `PackedGraph.d_pad`."""
@@ -288,9 +293,12 @@ def packed_slots(packed: PackedGraph, deg_limit: int | None,
 
 # --------------------------------------------------- build-time maintenance
 def empty_packed(n_cap: int, deg: int, dim: int, scale,
-                 device: torch.device | str) -> PackedGraph:
+                 device: torch.device | str = "cuda") -> PackedGraph:
     """All-sentinel payload for an empty graph (meta ids -1, zero norms,
     dists +inf).  Build-maintained packs always carry `dist`."""
+    from ocaml_hnsw_tpu_torch.api import _resolve_device
+
+    device = _resolve_device(device)
     meta = torch.zeros((n_cap, 2 * deg), dtype=torch.int32, device=device)
     meta[:, :deg] = -1
     return PackedGraph(
@@ -381,11 +389,14 @@ def _entries_to_packed_beam(entry_ids, entry_d, ef: int):
 def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
                                  entry_d, ef: int, needs_norms: bool,
                                  max_iters: int, expand: int = 2,
-                                 ways: int = 2, bits: int = 8):
+                                 bits: int = 8, fused: bool = False,
+                                 ways: int = 2):
     """Interleaved loop: the batch splits into `ways` independent
     sub-batches, each run for exactly `max_iters` iterations (no early
     exit, as in the JAX package).  Results equal running each sub-batch
-    through `beam_search_layer_packed` with early_exit=False."""
+    through `beam_search_layer_packed` with early_exit=False.  `fused`
+    names the pack's layout, as in JAX; K1 reads either the same way."""
+    del fused
     b = q8.shape[0]
     h = b // ways
     slices = [slice(i * h, (i + 1) * h) for i in range(ways)]
@@ -403,10 +414,11 @@ def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
 
 def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
                              ef: int, needs_norms: bool, max_iters: int,
-                             expand: int = 4, early_exit: bool = True,
-                             init_pk=None, init_d=None,
+                             expand: int = 4, deg_limit: int | None = None,
+                             early_exit: bool = True, bits: int = 8,
+                             fused: bool = False, init_pk=None, init_d=None,
                              raw_state: bool = False,
-                             slots: int | None = None, bits: int = 8):
+                             slots: int | None = None):
     """The packed layer-0 beam loop: per iteration, expand the E nearest
     unexpanded beam nodes and score their inlined neighbours (K1), dedup
     against the beam, merge.  Returns (ids, d, iters).
@@ -414,8 +426,15 @@ def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
     early_exit=True stops when every beam is fully expanded (one host sync
     per iteration); False runs exactly max_iters.  init_pk/init_d resume
     from a previous phase's raw (pk, d) state; raw_state=True returns it.
-    slots / bits: K1's neighbours per node (`packed_slots`) and payload
-    width; q8 is int8[B, d_pad] for bits=8, bf16[B, 2·d_pad] q/s for 4."""
+    bits: the payload width; q8 is int8[B, d_pad] for bits=8, bf16[B,
+    2·d_pad] q/s for 4.  K1 scores `slots` neighbours per node: given
+    directly (the port's own argument), or resolved from the JAX package's
+    `deg_limit` / `fused` by `packed_slots` (ValueError where JAX's engine
+    cannot run that pair, and when both `slots` and `deg_limit` are given)."""
+    if slots is None:
+        slots = packed_slots(packed, deg_limit, fused)
+    elif deg_limit is not None:
+        raise ValueError("pass slots or deg_limit, not both")
     step = _beam_body(packed, q8, qn, ef, needs_norms, expand, slots, bits)
     if init_pk is not None:
         beam_pk, beam_d = init_pk, init_d

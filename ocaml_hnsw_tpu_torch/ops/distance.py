@@ -14,6 +14,7 @@ import torch
 
 from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import gather_dists
+from ocaml_hnsw_tpu_torch.ops.quantize import dequantize_gathered
 
 INF = float("inf")
 
@@ -51,10 +52,7 @@ def dists_to_ids(vectors, scales, norms, q, qn, ids, metric: str):
 def gather_dequant(vectors, scales, ids):
     """Gather rows by id and dequantize to f32[B, K, D] (sentinels → row 0)."""
     safe = ids.clamp_min(0).long()
-    rows = vectors[safe]
-    if rows.dtype == torch.int8:
-        return rows.float() * scales[safe][:, :, None]
-    return rows.float()
+    return dequantize_gathered(vectors[safe], scales[safe])
 
 
 def pairwise_dists(x, x_norms, metric: str):

@@ -7,7 +7,8 @@ A metric supplies:
   pair_dist(rows, q) -> d          REQUIRED.  rows f32[..., K, D], q
       f32[..., D] (broadcast against rows' leading dims) -> f32[..., K].
       Written with operators and methods only, so the same function runs on
-      torch tensors and on NumPy arrays.
+      torch tensors and on NumPy arrays.  If that's not possible, pass a
+      separate ``np_pair_dist`` for the NumPy side (`Metric.pair_dist_np`).
 
   matmul_score(dot, x_norms) -> s  OPTIONAL.  Rank-equivalent scores from one
       matrix product: dot f32[B, N] = q·xᵀ, x_norms f32[N] = ‖x‖².  Enables
@@ -35,9 +36,16 @@ class Metric:
     name: str
     pair_dist: Callable
     matmul_score: Callable | None = None
+    np_pair_dist: Callable | None = None
     normalize_add: bool = False
     normalize_query: bool = False
     needs_norms: bool = False
+
+    def pair_dist_np(self, rows, q):
+        """NumPy-side pair distance: `np_pair_dist` when given, else
+        `pair_dist`."""
+        fn = self.np_pair_dist or self.pair_dist
+        return fn(rows, q)
 
 
 _REGISTRY: dict[str, Metric] = {}
@@ -48,6 +56,7 @@ def register_metric(
     pair_dist: Callable,
     *,
     matmul_score: Callable | None = None,
+    np_pair_dist: Callable | None = None,
     normalize_add: bool = False,
     normalize_query: bool = False,
     needs_norms: bool = False,
@@ -61,6 +70,7 @@ def register_metric(
         name=name,
         pair_dist=pair_dist,
         matmul_score=matmul_score,
+        np_pair_dist=np_pair_dist,
         normalize_add=normalize_add,
         normalize_query=normalize_query,
         needs_norms=needs_norms,

@@ -32,3 +32,11 @@ def quantize_rows(x: torch.Tensor, storage: str):
     q = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
     xd = q.float() * scale[:, None]
     return q, scale, torch.sum(xd * xd, dim=1)
+
+
+def dequantize_gathered(rows: torch.Tensor, scales: torch.Tensor
+                        ) -> torch.Tensor:
+    """[B, K, D] stored rows + f32[B, K] scales → f32[B, K, D]."""
+    if rows.dtype == torch.int8:
+        return rows.float() * scales[:, :, None]
+    return rows.float()
