@@ -77,10 +77,21 @@ blocks of D1 and D2, on phase E's level-0 build block and per-shard
 rerank, K1 on a phase-C construction beam step, on a phase-E shard's query
 beam step and at phase F's variants (`slots` on a deg_limit step,
 `bits=4`, the refined deg-16 payload; K2 on refine's candidate block).
-Ground
-truth everywhere is the harness's `device_ground_truth` (exact f32 on the
-card).  Launch counters are zeroed before each phase and read after it; a
-phase whose path runs a kernel fails if that kernel did not launch.
+
+K3 (`scan_topk`, the flat scan and its top-k select in one kernel) is held
+against its plain version on edge cases (B and N no multiple of a tile, D =
+96, 100, 128, 768 and the narrow copy units, bf16 and int8, every metric,
+tombstones, n < N, rerank_k 32, 97 and K_MAX, and rerank_k over K_MAX,
+which takes one launch per page of K_MAX, with rows repeated so that
+scores tie across a page's edge): int8 scores equal bit for bit, bf16
+scores within the f32 summation bound (`k3_agree`).  It is timed
+cold at the main path's shapes (the kNN table's 8192-row block, k = 97; the
+8192-query flat batch, k = 32) and at D1's and D2's captured flat batches,
+beside its bound, its plain version and cuBLAS's bf16 product of the same
+shapes alone.  No scan may take K3's plain route (`read_launches`).
+Ground truth everywhere is the harness's `device_ground_truth` (exact f32
+on the card).  Launch counters are zeroed before each phase and read after
+it; a phase whose path runs a kernel fails if that kernel did not launch.
 
 Exits non-zero, printing no result, when no CUDA device is available.  The
 last line of stdout is {"ok": true, "device": {...}}; the line before it is
@@ -125,6 +136,10 @@ from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
 )
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
     nibble_unpack, packed_score, packed_score_plain,
+)
+from ocaml_hnsw_tpu_torch.ops.kernels import scan_topk as k3_mod
+from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import (
+    scan_topk, scan_topk_plain,
 )
 from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows, storage_dtype
@@ -206,11 +221,24 @@ K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
 INT8_EDGE_SCALES = (0.0, 1e-30, 1e30, 0.01, 1.0)
 # K1 must equal its plain version bit for bit (exact int32 dot, same
 # rounding in the epilogue)
+#: K3 (scan_topk) edge cases: B queries against N rows cut from a
+#: 12288-slot flat (no multiple of any tile) with n of them written, at
+#: each width; rerank_k cycles through K3_KS
+K3_EDGE = (300, 11_997, 10_000)
+K3_DIMS = (96, 100, 128, 768)
+K3_KS = (32, 97, k3_mod.K_MAX)
+#: bf16 scans: the least share of (query, slot) ids K3 and its plain
+#: version hold in common (the rest tie with the k-th score within the f32
+#: summation bound)
+K3_SHARED = 0.999
+#: reps of K3's plain version at the main-path shapes (0.2-2.6 s a call)
+K3_PLAIN_REPS = 3
 
 #: NVIDIA H100 SXM data sheet: memory rate, dense int8 and f32 (no tensor
 #: core) peaks
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 FLUSH_BYTES = 128 << 20
 SPIN_CYCLES = 2_000_000  # about 1 ms of spin ahead of each timed call
@@ -220,7 +248,14 @@ DEV = torch.device("cuda")
 PROFILE_DIR = None  # --profile-dir: where busy_share writes op tables
 NO_LIBRARY = ("no single PyTorch call computes it: a gather and a distance "
               "are at least two calls (index_select, then a reduction)")
+K3_NO_LIBRARY = ("no single PyTorch call computes it: a product and a top-k "
+                 "are two calls; product_ms is cuBLAS's bf16 product of the "
+                 "same shapes alone, as context (never called by the port)")
+K3_REPLACES = ("XLA's MXU dot_general fused with jax.lax.approx_min_k "
+               "(ocaml_hnsw_tpu/models/flat.py:170-200), not a Pallas kernel")
 K1_REGS: dict = {}  # registers per K1 instance (phase_build_kernels)
+#: the tensor-core product instructions the build step counts per kernel
+TENSOR_OPS = ("HMMA", "IMMA")
 
 
 def say(msg: str) -> None:
@@ -499,17 +534,28 @@ def reset_launches() -> None:
                    gather_dists.launches_by_dtype):
         counts.update(dict.fromkeys(counts, 0))
     packed_score.launches = 0
+    scan_topk.launches = 0
+    scan_topk.launches_by_dtype.update(
+        dict.fromkeys(scan_topk.launches_by_dtype, 0))
 
 
 def read_launches() -> dict:
-    """Launch counts: each kernel's, and K2's by path ("gather_dists/ring",
-    ...) and by row dtype ("gather_dists/int8", ...)."""
+    """Launch counts: each kernel's, K2's by path ("gather_dists/ring",
+    ...) and by row dtype ("gather_dists/int8", ...), K3's by scan dtype
+    ("scan_topk/int8", ...).  Raises if any scan took K3's plain route
+    (`scan_topk.plain_routes`): no path of this script may."""
+    if scan_topk.plain_routes:
+        raise AssertionError(f"{scan_topk.plain_routes} scans took K3's "
+                             "plain route")
     return {"gather_dists": gather_dists.launches,
             "packed_score": packed_score.launches,
+            "scan_topk": scan_topk.launches,
             **{f"gather_dists/{p}": n
                for p, n in gather_dists.launches_by_path.items()},
             **{f"gather_dists/{d}": n
-               for d, n in gather_dists.launches_by_dtype.items()}}
+               for d, n in gather_dists.launches_by_dtype.items()},
+            **{f"scan_topk/{d}": n
+               for d, n in scan_topk.launches_by_dtype.items()}}
 
 
 def require_launches(phase: str, launches: dict, kernels) -> None:
@@ -518,26 +564,41 @@ def require_launches(phase: str, launches: dict, kernels) -> None:
             raise AssertionError(f"{kern} was not launched in phase {phase}")
 
 
-def busy_share(fn, name: str) -> dict:
-    """Profile fn once: the device-busy share of its wall time (kernels'
-    device time summed by torch.profiler over the wall time of the profiled
-    call; profiling adds host time, so this reads low; None when the
-    profiler records no device time), the number of device kernels, and the
-    wall time per kernel, and the six device kernels with the most device
-    time as [name, ms, count].  With --profile-dir DIR the op table (by
-    host time) goes to DIR/profile_<name>.txt."""
-    from torch.profiler import ProfilerActivity, profile
+def busy_share(fn, name: str, again: bool = True) -> dict:
+    """Profile one call of fn: the device-busy share of its wall time
+    (kernels' device time summed by torch.profiler over the wall time of
+    the profiled call; profiling adds host time, so this reads low; None
+    when the profiler records no device time), the number of device
+    kernels, the wall time per kernel, the six device kernels with the
+    most device time as [name, ms, count], and every device kernel's name.
+    With --profile-dir DIR the op table (by host time) goes to
+    DIR/profile_<name>.txt.
 
+    Once a process has run for a minute or so, torch.profiler drops the
+    first kernel records of a window, more as the process ages (PERF.md
+    §7); a schedule that runs fn in a wait and a warm-up step before the
+    recorded one keeps that call whole.  `again=False` (fn changes state
+    and may run once) records a plain window, which may miss its first
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    steps = 3 if again else 1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0  # not the trace's processing
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)
+                 if again else None) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0  # not the trace's processing
+            if again:
+                prof.step()
     stats = prof.key_averages()
+    # device events but the schedule's step annotation, which spans them
     dev = [e for e in stats
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
     dev_us = sum(e.self_device_time_total for e in dev)
     kernels = sum(e.count for e in dev)
     if PROFILE_DIR is not None:
@@ -547,6 +608,7 @@ def busy_share(fn, name: str) -> dict:
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     return dict(share=dev_us / 1e6 / wall if dev_us > 0 else None,
                 kernels=kernels, wall_s=wall,
+                names=[e.key for e in dev],
                 us_per_kernel=wall * 1e6 / kernels if kernels else None,
                 top=[[e.key[:70], round(e.self_device_time_total / 1e3, 2),
                       e.count] for e in top])
@@ -616,9 +678,17 @@ def phase_build_kernels() -> None:
     # of a float reciprocal, K1's epilogue); K2 widens int8 rows by integer
     # ops, so its int8 vector and ring kernels may have no more than their
     # bf16 twins, which convert nothing per element
-    sass = sass_op_counts(path)
+    sass = sass_op_counts(path, CONVERSIONS + TENSOR_OPS)
     for kernel, counts in sass.items():
         say(f"[build] sass {kernel}: {json.dumps(counts)}")
+        # K3's product runs on the tensor cores: HMMA in its bf16
+        # instances, IMMA in its int8 ones
+        if kernel.startswith("scan_topk_kernel"):
+            # <QT, kInt8, kBound>
+            int8 = kernel.split("<")[1].split(", ")[1] == "true"
+            op = "IMMA" if int8 else "HMMA"
+            if counts[op] == 0:
+                raise AssertionError(f"{kernel}: no {op} in its SASS")
         if kernel.startswith(("gather_vec_kernel<signed char",
                               "gather_ring_kernel<signed char")):
             twin = sass[kernel.replace("signed char, true",
@@ -908,6 +978,212 @@ def check_k2_ring(gen, ids_for, queries) -> list[dict]:
 
 
 # ------------------------------------------------------- main-path shapes
+# ------------------------------------------------------------ K3 scan_topk
+def k3_inputs(b: int, n_rows: int, n_live: int, dim: int, dtype: str,
+              metric: str, gen, dead_share: float = 0.05):
+    """(scan, scales, norms, deleted, n, q): the first n_rows slots of a
+    flat (`flat_add` of n_live random rows, unit rows under cosine), a
+    `dead_share` of them tombstoned, and b random queries (unit under
+    cosine, as `preprocess_queries` makes them)."""
+    flat = flat_mod.empty_flat(dim, n_rows, scan_dtype=dtype, device=DEV)
+    rows = torch.from_numpy(gen.standard_normal((n_live, dim),
+                                                dtype=np.float32)).to(DEV)
+    q = torch.from_numpy(gen.standard_normal((b, dim),
+                                             dtype=np.float32)).to(DEV)
+    if metric == "cosine":
+        rows = rows / torch.linalg.norm(rows, dim=1, keepdim=True)
+        q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    flat_mod.flat_add(flat, rows, 0, n_live)
+    flat.deleted[:] = torch.from_numpy(gen.random(flat.n_cap)
+                                       < dead_share).to(DEV)
+    cut = slice(0, n_rows)
+    return (flat.scan[cut], flat.scales[cut], flat.norms[cut],
+            flat.deleted[cut], flat.n, q)
+
+
+def k3_cost(scan, q, k: int) -> tuple[int, int, float]:
+    """(bytes, ops, peak) of one scan_topk call: each row with its norm,
+    tombstone (and int8 scale) read once, each f32 query read once, each
+    (score, i64 id) written once; 2·B·N·D multiply-adds on the tensor
+    cores."""
+    n, d = scan.shape
+    b = q.shape[0]
+    int8 = scan.dtype == torch.int8
+    row = d * scan.element_size() + 5 + (4 if int8 else 0)
+    return (n * row + b * d * 4 + b * k * 12, 2 * b * n * d,
+            INT8_OPS_PER_S if int8 else BF16_FLOPS_PER_S)
+
+
+def k3_eps(scan, q, id_lists, l2: bool):
+    """Per query, the f32 summation bound 2·D·2⁻²⁴·Σ|q_i·x_i| of a bf16
+    scan's dot (two sums of exact products in different orders), doubled
+    for l2's score, at its worst over the rows either list holds."""
+    qa = q.to(torch.bfloat16).float().abs()
+    worst = torch.zeros(q.shape[0], device=q.device)
+    for ids in id_lists:
+        x = scan[ids.clamp_min(0)].float().abs()
+        t = torch.einsum("bkd,bd->bk", x, qa)
+        worst = torch.maximum(worst, torch.where(ids >= 0, t, 0.0).amax(1))
+    return (2.0 if l2 else 1.0) * 2 * q.shape[1] * 2.0 ** -24 * worst
+
+
+def k3_agree(label: str, scan, q, s, i, s_ref, i_ref, metric: str) -> str:
+    """K3's (scores, ids) against its plain version's, both ascending.
+    int8: scores equal bit for bit, ids equal but where a score ties with
+    the k-th.  bf16: every score within the f32 summation bound of the
+    plain one at the same slot (`k3_eps`, plus the epilogue's last
+    rounding), at least K3_SHARED of the (query, slot) ids shared, and
+    every id the plain list lacks within that bound of its k-th score.
+    Entries at +inf (fewer live rows than rerank_k) must match in number."""
+    fin, fin_ref = torch.isfinite(s), torch.isfinite(s_ref)
+    if not torch.equal(fin, fin_ref):
+        raise AssertionError(f"K3 {label}: finite entries differ from plain")
+    kth = s_ref[:, -1:]
+    shared = (i[:, :, None] == i_ref[:, None, :]).any(-1) & fin
+    if scan.dtype == torch.int8:
+        if not torch.equal(s, s_ref):
+            raise AssertionError(f"K3 {label}: int8 scores differ from plain")
+        if (fin & ~shared & (s != kth)).any():
+            raise AssertionError(f"K3 {label}: ids differ from plain away "
+                                 "from ties with the k-th score")
+        return "scores equal, ids equal but at ties"
+    tol = (k3_eps(scan, q, (i, i_ref), metric == "l2")[:, None]
+           + 2.0 ** -22 * s_ref.abs())
+    over = ((s - s_ref).abs() > tol) & fin
+    if over.any():
+        raise AssertionError(f"K3 {label}: {int(over.sum())} scores outside "
+                             "the f32 summation bound")
+    frac = float(shared.sum()) / max(1, int(fin.sum()))
+    if frac < K3_SHARED:
+        raise AssertionError(f"K3 {label}: {frac:.5f} of ids shared < "
+                             f"{K3_SHARED}")
+    miss = fin & ~shared & ((s - kth).abs() > tol[:, -1:])
+    if miss.any():
+        raise AssertionError(f"K3 {label}: {int(miss.sum())} ids the plain "
+                             "list lacks, away from its k-th score")
+    return f"within the f32 bound, {frac:.5f} of ids shared"
+
+
+def k3_product(scan, q):
+    """cuBLAS's bf16 product of the same shapes alone (int8 rows upcast to
+    bf16 first, untimed), 1024 queries at a time into one [1024, N] block:
+    context for K3's time; the port never calls it."""
+    rows = scan if scan.dtype == torch.bfloat16 else scan.to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    out = torch.empty((min(1024, q.shape[0]), rows.shape[0]),
+                      dtype=torch.bfloat16, device=DEV)
+
+    def run():
+        for q0 in range(0, qb.shape[0], out.shape[0]):
+            blk = qb[q0:q0 + out.shape[0]]
+            torch.matmul(blk, rows.T, out=out[:blk.shape[0]])
+
+    return run
+
+
+def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
+            time_it: bool = False) -> dict:
+    """scan_topk against scan_topk_plain on `args` (scan, scales, norms,
+    deleted, n, q) by `k3_agree`; with `time_it`, both cold beside the
+    bound, and the bf16 product alone (`k3_product`)."""
+    scan, q = args[0], args[5]
+    s, i = scan_topk(*args, rerank_k, metric)
+    s_ref, i_ref = scan_topk_plain(*args, rerank_k, metric)
+    torch.cuda.synchronize()
+    agree = k3_agree(label, scan, q, s, i, s_ref, i_ref, metric)
+    fin = torch.isfinite(s_ref)
+    err = float((s[fin] - s_ref[fin]).abs().max()) if fin.any() else 0.0
+    b, dim = q.shape
+    plan = k3_mod.plan_for(scan, b, min(rerank_k, k3_mod.K_MAX))
+    row = dict(case=label, shape=[b, scan.shape[0], dim, rerank_k],
+               dtype=str(scan.dtype).replace("torch.", ""), metric=metric,
+               max_abs_err=err, plan=dict(qt=plan.qt, stages=plan.stages,
+                                          splits=plan.splits, vec=plan.vec,
+                                          smem=plan.smem_bytes,
+                                          pages=-(-rerank_k // k3_mod.K_MAX)))
+    timing = ""
+    if time_it:
+        nbytes, ops, peak = k3_cost(scan, q, rerank_k)
+        ms = device_ms(lambda: scan_topk(*args, rerank_k, metric), flush,
+                       reps=10)
+        plain_ms = device_ms(lambda: scan_topk_plain(*args, rerank_k,
+                                                     metric),
+                             flush, reps=K3_PLAIN_REPS, warmup=1)
+        product_ms = device_ms(k3_product(scan, q), flush, reps=5, warmup=1)
+        bms, by = bound(nbytes, ops, peak)
+        row.update(bytes=nbytes, bound_ms=bms, bound_by=by, ms=ms,
+                   plain_ms=plain_ms, share=bms / ms, product_ms=product_ms,
+                   tops=ops / ms / 1e9)
+        timing = (f"; {nbytes / 1e6:.1f} MB, {ops / 1e12:.2f} T ops, bound "
+                  f"{bms:.3f} ms ({by}); kernel {ms:.3f} ms = {bms / ms:.1%}"
+                  f" of bound, {row['tops']:.1f} T ops/s; plain "
+                  f"{plain_ms:.2f} ms; bf16 product alone {product_ms:.3f} ms")
+    say(f"[K3 scan_topk] {label} B={b} N={scan.shape[0]} D={dim} "
+        f"k={rerank_k} {row['dtype']} {metric} "
+        f"(plan {json.dumps(row['plan'])})"
+        f": {agree}; max |err| {err:.3e}{timing}")
+    return row
+
+
+def check_k3_edges(gen) -> list[dict]:
+    """K3 against its plain version at K3_EDGE for every width of K3_DIMS,
+    both scan dtypes and every metric (rerank_k cycling through K3_KS),
+    then the narrow copy units (bf16 D=101, int8 D=99 and D=100, a bf16
+    base 8 bytes off 16), few live rows, and one query."""
+    b, n_rows, n_live = K3_EDGE
+    rows = []
+    cases = [(dim, dtype, metric) for dim in K3_DIMS
+             for dtype in ("bf16", "int8")
+             for metric in ("l2", "ip", "cosine")]
+    for c, (dim, dtype, metric) in enumerate(cases):
+        k = K3_KS[c % len(K3_KS)]
+        rows.append(k3_case(f"edge {dtype} D={dim} {metric} k={k}",
+                            k3_inputs(b, n_rows, n_live, dim, dtype, metric,
+                                      gen), k, metric))
+    for dim, dtype, off in ((101, "bf16", 0), (99, "int8", 0),
+                            (100, "int8", 0), (100, "bf16", 1)):
+        args = k3_inputs(b, n_rows + off, n_live, dim, dtype, "l2", gen)
+        args = tuple(t[off:] for t in args[:4]) + args[4:]
+        rows.append(k3_case(f"narrow copies {dtype} D={dim} offset {off}",
+                            args, 97, "l2"))
+    rows.append(k3_case("few live rows", k3_inputs(37, 300, 120, 128, "bf16",
+                                                   "ip", gen, 0.5),
+                        97, "ip"))
+    rows.append(k3_case("one query", k3_inputs(1, n_rows, n_live, 128, "int8",
+                                               "cosine", gen), 32, "cosine"))
+    # rerank_k over K_MAX: pages of K_MAX, each bounded by the page before;
+    # the second third of the rows repeats the first, so scores tie across
+    # page edges (int8: exactly), and some queries are rows
+    for dtype, metric, dim, k in (("int8", "ip", 96, 600),
+                                  ("bf16", "l2", 128, 300),
+                                  ("int8", "cosine", 100, 257)):
+        args = k3_inputs(b, n_rows, n_live, dim, dtype, metric, gen)
+        third = n_live // 3
+        for t in args[:3]:
+            t[third:2 * third] = t[:third]
+        q = args[5].clone()
+        q[:b // 4] = args[0][:b // 4].float() * (
+            args[1][:b // 4, None] if dtype == "int8" else 1.0)
+        rows.append(k3_case(f"paged {dtype} D={dim} {metric} k={k}, "
+                            "repeated rows", args[:5] + (q,), k, metric))
+    return rows
+
+
+def check_k3_main(x, qps_queries, flush) -> list[dict]:
+    """K3 timed at the main path's shapes on main's rows: the kNN table's
+    8192-row block (k = KNN_K + 1 + 32) and the flat batch (8192 queries,
+    k = 32)."""
+    flat = bulk_mod.flat_from_rows(x, "l2")
+    args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n)
+    qq = torch.from_numpy(qps_queries).to(DEV)
+    rows = [k3_case(f"kNN-table block {QPS_BATCH}x{N}", (*args, x[:QPS_BATCH]),
+                    KNN_K + 1 + 32, "l2", flush, time_it=True),
+            k3_case(f"flat batch {QPS_BATCH}x{N}", (*args, qq), 32, "l2",
+                    flush, time_it=True)]
+    return rows
+
+
+
 def check_k1_main(packed, qps_queries, captured, flush, gen) -> list[dict]:
     """On the index's own 1M payload: random nodes (cold) and the nodes of
     the main path's 10th beam iteration (real), at B=4096 (one interleaved
@@ -949,7 +1225,8 @@ def check_k2_main(x, data_q, seed_call, rerank_call, knn_call, flush,
     for metric, base, qq in (("l2", x, q), ("ip", xn, qn)):
         for storage in ("f32", "bf16", "int8"):
             vec, sc, _ = quantize_rows(base, storage)
-            for b, k in ((QPS_BATCH, 8), (QPS_BATCH, 32), (1024, 97)):
+            for b, k in ((QPS_BATCH, 8), (QPS_BATCH, 32),
+                         (QPS_BATCH, KNN_K + 1 + 32)):
                 ids = gen.integers(-1, N, size=(b, k)).astype(np.int32)
                 ids[:, 0] = -1
                 t = (metric, storage) == ("l2", "f32")
@@ -986,10 +1263,10 @@ def capture_query(index, qps_queries):
 
 
 def capture_knn_batch(x: torch.Tensor):
-    """Arguments of K2 in one 1024-row batch (the 11th) of the kNN table."""
+    """Arguments of K2 in one 8192-row batch (the 2nd) of the kNN table."""
     flat = bulk_mod.flat_from_rows(x, "l2")
     with recording(flat_mod, "gather_dists") as calls:
-        bulk_mod.knn_table(flat, x[10 * 1024:11 * 1024], KNN_K, "l2")
+        bulk_mod.knn_table(flat, x[QPS_BATCH:2 * QPS_BATCH], KNN_K, "l2")
     (vec, scales, q, ids, metric), = calls
     return vec, scales, q, ids, metric
 
@@ -1106,6 +1383,7 @@ def kernels_only(gen) -> int:
     """Edge checks plus cold timings on synthetic data (no index)."""
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
     check_k1_edges(gen)
+    check_k3_edges(gen)
     x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
                                    seed=7)).to(DEV)
     check_k2_edges(x, gen)
@@ -1439,7 +1717,8 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
         raise AssertionError("phase A: results differ after save/load")
     extra = queries_like(data, A_ADD, seed=11)
     reset_launches()
-    add_busy = busy_share(lambda: loaded.add_items(extra), "A_add")
+    add_busy = busy_share(lambda: loaded.add_items(extra), "A_add",
+                          again=False)
     add_launches = read_launches()
     require_launches("A add after load", add_launches, ["gather_dists"])
     x_all = torch.cat([x, torch.from_numpy(extra).to(DEV)])
@@ -1686,12 +1965,13 @@ def phase_g(x, queries, qps_queries, gt, main: dict | None, smi: str,
                    want=lambda a: scans.append(a[0].scan.dtype)), \
             recording(flat_mod, "gather_dists",
                       want=lambda a: a[0].shape[0] >= N
-                      and a[3].shape[0] == 1024, keep=1) as knn_calls:
+                      and a[3].shape[0] == QPS_BATCH, keep=1) as knn_calls:
         g = bulk_mod.bulk_build(x, cfg, scan_dtype="int8")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = read_launches()
-    require_launches("G1 int8 bulk build", build_launches, ["gather_dists"])
+    require_launches("G1 int8 bulk build", build_launches,
+                     ["gather_dists", "scan_topk", "scan_topk/int8"])
     n_tables = len(scans)
     lv = g.levels[:N].cpu().numpy()
     want = 1 + sum(int((lv >= l).sum() >= 2)  # a 1-node level has no table
@@ -1828,7 +2108,7 @@ def check_int8_scan(gen) -> None:
                                            dtype=np.int8)).to(DEV)
         rows = torch.from_numpy(gen.integers(-127, 128, size=(n, d),
                                              dtype=np.int8)).to(DEV)
-        got = flat_mod.int8_dot(qi, rows).to(torch.int64)
+        got = k3_mod.int8_dot(qi, rows).to(torch.int64)
         ref = torch.matmul(qi.double(), rows.double().T).to(torch.int64)
         if not torch.equal(got, ref):
             raise AssertionError(f"int8 scan [{b}, {n}] D={d}: "
@@ -1837,15 +2117,18 @@ def check_int8_scan(gen) -> None:
 
 
 def harness_case(tag: str, name: str, kwargs: dict, smi: str, flush, gen,
-                 kernels) -> tuple[dict, list]:
+                 kernels) -> tuple[dict, list, list]:
     """One `run_config` on the card: its result printed as JSON, every
     engine's best recall held to D_FLOOR, `kernels` required to have
-    launched, and K2 held and timed at the flat engine's rerank block (the
-    arguments of the flat sweep's last batch)."""
+    launched, and K2 and K3 held and timed at the flat engine's rerank and
+    scan (the arguments of the flat sweep's last batch)."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with metering(flat_mod, "gather_dists") as reranks:
+    with metering(flat_mod, "gather_dists") as reranks, \
+            recording(flat_mod, "scan_topk",
+                      want=lambda a: a[5].shape[0] == QPS_BATCH,
+                      keep=1) as scans:
         out = harness_mod.run_config(name, qps_batch=QPS_BATCH, verbose=False,
                                      device=DEV.type, **kwargs)
     took = time.perf_counter() - t0
@@ -1873,7 +2156,12 @@ def harness_case(tag: str, name: str, kwargs: dict, smi: str, flush, gen,
                     time_it=True),
             k2_case(f"{tag} flat rerank real {label}", vec, sc, q, ids,
                     metric, flush, time_it=True)]
-    return dict(result=out, launches=launches, seconds=took), rows
+    del vec, sc, q, ids
+    (args,) = scans
+    del scans
+    rows3 = [k3_case(f"{tag} flat batch {args[5].shape[0]}x{args[0].shape[0]}",
+                     args[:6], args[6], args[7], flush, time_it=True)]
+    return dict(result=out, launches=launches, seconds=took), rows, rows3
 
 
 def l1_pair(rows, q):
@@ -2174,6 +2462,7 @@ def main(argv: list[str]) -> int:
         return 0
     k1_rows = check_k1_edges(gen)
     k2_rows = check_k2_edges(x, gen)
+    k3_rows = check_k3_edges(gen)
 
     # ---- phases A and B: the incremental build and the classic engine
     phase_f_only = "--phase-f" in argv
@@ -2193,20 +2482,19 @@ def main(argv: list[str]) -> int:
     index = Index("l2", DIM, device=DEV.type)
     index.init_index(max_elements=N, M=M, ef_construction=EFC)
     torch.cuda.reset_peak_memory_stats()
-    gather_dists.launches = 0
-    packed_score.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index.add_items(data)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = {"gather_dists": gather_dists.launches,
-                      "packed_score": packed_score.launches}
+    build_launches = read_launches()
+    require_launches("main build", build_launches,
+                     ["gather_dists", "scan_topk", "scan_topk/bf16"])
     t0 = time.perf_counter()
     labels, dists = index.knn_query(queries, **QUERY_KNOBS)
     query_s = time.perf_counter() - t0  # includes the one-off payload pack
-    launches = {"gather_dists": gather_dists.launches,
-                "packed_score": packed_score.launches}
+    launches = {k: v for k, v in read_launches().items() if "/" not in k}
     say(f"[main] launches during build+query: {json.dumps(launches)} "
         f"(build alone: {json.dumps(build_launches)})")
     say(f"[main] build {build_s:.2f} s = {N / build_s:.0f} vectors/s; first "
@@ -2245,10 +2533,9 @@ def main(argv: list[str]) -> int:
         say(f"[F] phase took {time.perf_counter() - t0:.1f} s; --phase-f: "
             "stop here")
         return 0
-    before = (gather_dists.launches, packed_score.launches)
+    reset_launches()
     k1_calls, seed_call, rerank_call = capture_query(index, qps_queries)
-    batch_launches = {"gather_dists": gather_dists.launches - before[0],
-                      "packed_score": packed_score.launches - before[1]}
+    batch_launches = read_launches()
     say(f"[main] launches per {QPS_BATCH}-query batch: "
         f"{json.dumps(batch_launches)}")
 
@@ -2260,16 +2547,43 @@ def main(argv: list[str]) -> int:
     k2_rows += check_k2_main(x, qps_queries, seed_call, rerank_call, knn_call,
                              flush, gen)
     del knn_call, seed_call, rerank_call
-    # where one flat-scan batch spends its device time (matmul, top-k, the
-    # elementwise passes): 8192 queries over the 1M rows, bf16 scan
+    k3_rows += check_k3_main(x, qps_queries, flush)
+    # where one flat-scan batch spends its device time (K3, the K2 rerank,
+    # sorts): 8192 queries over the 1M rows, bf16 scan
     flat = bulk_mod.flat_from_rows(x, "l2")
     qq = torch.from_numpy(qps_queries).to(dev)
+    reset_launches()
     flat_mod.flat_search(flat, qq, 10, "l2")
+    flat_launches = read_launches()
+    require_launches("main flat batch", flat_launches,
+                     ["scan_topk", "scan_topk/bf16", "gather_dists"])
     flat_busy = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
                            "flat_batch")
-    say(f"[main flat batch] {QPS_BATCH} queries over {N}x{DIM} bf16 scan, "
-        f"profiled: {fmt_share(flat_busy)}; device time by kernel "
-        f"[name, ms, count]: {json.dumps(flat_busy['top'])} [{smi}]")
+    # the trace must hold K3's kernel: the busy share and any device time
+    # read from a trace count it
+    if not any("scan_topk_kernel" in k for k in flat_busy["names"]):
+        raise AssertionError("the main flat batch's profile holds no "
+                             "scan_topk_kernel record")
+    # the batch's own time, host clock around a synchronize, median of 5
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        flat_mod.flat_search(flat, qq, 10, "l2")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    flat_ms = statistics.median(times) * 1e3
+    # the same batch in a plain window, which may miss its first kernel
+    # records (busy_share): printed, not required
+    plain = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
+                       "flat_batch_plain", again=False)
+    k3_in = any("scan_topk_kernel" in k for k in plain["names"])
+    say(f"[main flat batch] {QPS_BATCH} queries over {N}x{DIM} bf16 scan: "
+        f"{flat_ms:.2f} ms = {QPS_BATCH / flat_ms * 1e3:.0f} QPS (median of "
+        f"5); profiled: {fmt_share(flat_busy)}; device time by kernel "
+        f"[name, ms, count]: {json.dumps(flat_busy['top'])}; a plain "
+        f"window of the same batch records {plain['kernels']} kernels, K3 "
+        f"{'among them' if k3_in else 'not among them'}; launches "
+        f"{json.dumps(flat_launches)} [{smi}]")
     del flat, qq
 
     for kern, n in launches.items():
@@ -2308,14 +2622,18 @@ def main(argv: list[str]) -> int:
     del x, data
     say(f"[D3] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    d1_out, rows = harness_case("D1", "glove1m", D1, smi, flush, gen,
-                                ["gather_dists", "packed_score"])
+    d1_out, rows, rows3 = harness_case("D1", "glove1m", D1, smi, flush, gen,
+                                       ["gather_dists", "packed_score",
+                                        "scan_topk", "scan_topk/bf16"])
     k2_rows += rows
+    k3_rows += rows3
     say(f"[D1] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    d2_out, rows = harness_case("D2", "deep10m", D2, smi, flush, gen,
-                                ["gather_dists"])
+    d2_out, rows, rows3 = harness_case("D2", "deep10m", D2, smi, flush, gen,
+                                       ["gather_dists", "scan_topk",
+                                        "scan_topk/int8"])
     k2_rows += rows
+    k3_rows += rows3
     say(f"[D2] phase took {time.perf_counter() - t0:.1f} s (flat engine "
         f"only: the HNSW half of deep10m is not run)")
 
@@ -2329,6 +2647,7 @@ def main(argv: list[str]) -> int:
     by_phase = {
         "main_build": build_launches,
         "main_query_batch": batch_launches,
+        "main_flat_batch": flat_launches,
         "A_build": phase_a_out["launches_build"],
         "A_query_batch": phase_a_out["launches_per_batch"],
         "A_add_after_load": phase_a_out["launches_add"],
@@ -2348,6 +2667,8 @@ def main(argv: list[str]) -> int:
         **g_launches,
     }
     shapes = ("bytes", "bound_ms", "share", "ms", "plain_ms")
+    (headline_k3,) = [r for r in k3_rows
+                      if r["case"] == f"kNN-table block {QPS_BATCH}x{N}"]
     k1_ring = ("stages", "registers", "warps_per_sm", "items_per_warp")
     record = {"kernels": [
         dict(name="packed_score", route="cuda",
@@ -2387,6 +2708,30 @@ def main(argv: list[str]) -> int:
                       "path": r["path"], **{s: r[s] for s in shapes},
                       "requested_bytes": r["requested_bytes"]}
                      for r in k2_rows if "ms" in r]),
+        dict(name="scan_topk", route="cuda",
+             source="ocaml_hnsw_tpu_torch/csrc/scan_topk.cu",
+             replaces="ocaml_hnsw_tpu/models/flat.py:170",
+             replaces_note=K3_REPLACES,
+             launches=launches["scan_topk"],
+             launches_build=build_launches["scan_topk"],
+             launches_per_batch=flat_launches["scan_topk"],
+             launches_by_phase={p: c["scan_topk"]
+                                for p, c in by_phase.items()},
+             launches_by_dtype_by_phase={
+                 p: {dt: c[f"scan_topk/{dt}"]
+                     for dt in k3_mod.DTYPE_NAMES.values()}
+                 for p, c in by_phase.items()},
+             plain_routes=scan_topk.plain_routes,
+             max_abs_err=max(r["max_abs_err"] for r in k3_rows),
+             **{k: headline_k3[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "bytes", "share")},
+             library_ms=None, library_note=K3_NO_LIBRARY,
+             product_ms=headline_k3["product_ms"],
+             shapes=[{"case": r["case"], "shape": r["shape"],
+                      "dtype": r["dtype"], "metric": r["metric"],
+                      "plan": r["plan"], "product_ms": r["product_ms"],
+                      **{s: r[s] for s in shapes}}
+                     for r in k3_rows if "ms" in r]),
     ]}
     print(json.dumps(record))
     print(smi)

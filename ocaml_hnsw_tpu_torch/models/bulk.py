@@ -98,12 +98,13 @@ def flat_from_rows(rows, metric: str, scan_dtype: str = "bf16",
 
 
 # ------------------------------------------------------------------ base kNN
-def knn_table(flat, rows, k: int, metric: str, batch: int = 1024,
+def knn_table(flat, rows, k: int, metric: str, batch: int = 8192,
               rerank_pad: int = 32):
     """Top-k neighbor ids+dists of every row against the flat index, self
     excluded: (ids i32[n_rows, k], d f32[n_rows, k]) ascending.  Each batch
     asks for k+1 (k+1+rerank_pad candidates before the exact rerank) and
-    drops the self column.  `batch` bounds the [batch, N_cap] score block."""
+    drops the self column.  Each row's candidates are exact per row, so the
+    table does not depend on `batch`."""
     n_rows = rows.shape[0]
     dev = rows.device
     ids_out = torch.full((n_rows, k), -1, dtype=torch.int32, device=dev)
@@ -274,7 +275,7 @@ def bulk_build(
     config: HnswConfig,
     max_elements: int | None = None,
     knn_k: int = 64,
-    batch: int = 1024,
+    batch: int = 8192,
     scan_dtype: str = "bf16",
     levels=None,
     verbose: bool = False,
@@ -288,9 +289,8 @@ def bulk_build(
     from its own stream).  `scan_dtype` is the flat scan of every kNN table
     (layer 0 and each upper level): "bf16", or "int8", whose candidates are
     reranked in exact f32 (K2) as the bf16 scan's are.  `batch` is the
-    queries per kNN-table batch; its default differs from the JAX
-    package's 8192 (it bounds the [batch, N_cap] score block) and does not
-    change results.  Stage times go to this module's logger at INFO, and
+    queries per kNN-table batch (the JAX package's 8192; it does not change
+    results).  Stage times go to this module's logger at INFO, and
     are printed with verbose=True (timed with a device sync only then)."""
     from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
     from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows

@@ -4,23 +4,25 @@ through the gather-distance kernel (K2) and the final top-k.
 
 Four scans, as in the JAX package:
 
-  * bf16 (default): the bf16-rounded operands upcast to f32 and multiplied
-    (bf16×bf16 products are exact in f32), which is what the JAX package's
-    bf16 dot with f32 output computes;
-  * int8 (`scan_dtype="int8"`): rows and queries quantized per row, an
-    exact integer dot, one f32 rescale by the outer product of the scales;
+  * bf16 (default) and int8 (`scan_dtype="int8"`: rows and queries
+    quantized per row, an exact integer dot, one f32 rescale by the outer
+    product of the scales) go to the scan-and-select kernel (K3,
+    `ops/kernels/scan_topk.py`), which takes the product on the tensor
+    cores and keeps each query's top `rerank_k` without writing the score
+    block, as the JAX package's MXU product fused with `approx_min_k` does
+    on the TPU (here the top-k is exact);
   * exact (`exact=True`, the BFIndex semantics): the rerank rows in full
-    f32 (TF32 must be off: checked);
+    f32 (TF32 must be off: checked), a library product and `torch.topk`
+    (the JAX package's HIGHEST einsum with an exact top_k);
   * a registered metric without a matmul form: `pair_dist` over 4096-row
     chunks of the rerank rows with a running top-k.
 
-The scans are library matrix products, as the JAX package leaves them to
-XLA.  Its `approx_min_k` becomes exact `torch.topk`.  No scan ever holds a
-score block of more than SCORE_BUDGET_BYTES: queries go in blocks, and when
-one block's scores over all rows would pass the budget, the rows go in slabs
-with a running top-`rerank_k` merge.  The candidates are put in id order
-before the rerank, so results do not depend on the tiling (nor on which of
-two equal distances a top-k met first: the lower id wins).
+The exact scan never holds a score block of more than SCORE_BUDGET_BYTES:
+queries go in blocks, and when one block's scores over all rows would pass
+the budget, the rows go in slabs with a running top-`rerank_k` merge.  The
+candidates are put in id order before the rerank, so results do not depend
+on the tiling (nor on which of two equal distances a top-k met first: the
+lower id wins).
 """
 
 from __future__ import annotations
@@ -31,19 +33,18 @@ import torch
 
 from ocaml_hnsw_tpu_torch.ops.distance import INF, require_full_f32_matmul
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import gather_dists
+from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import (
+    quantize_int8, scan_topk,
+)
 from ocaml_hnsw_tpu_torch.utils import round_up
 
-#: bytes of one f32 score block [query block, row slab]; a scan holds up to
-#: three such blocks at a time (product, scores, the int8 scan's scale
-#: block).  4 GiB keeps the kNN table's [1024, 1M] block whole.
+#: bytes of one f32 score block [query block, row slab]; the exact scan
+#: holds up to two such blocks at a time (product, scores)
 SCORE_BUDGET_BYTES = 4 << 30
 #: queries per block once the rows go in slabs
 Q_BLOCK = 1024
 #: rows per chunk of the registry-metric scan (the JAX package's)
 METRIC_CHUNK = 4096
-#: an f32 sum of products of int8 values is exact up to this many terms
-#: (127² · 1040 < 2²⁴)
-_EXACT_INT8_TERMS = 1040
 
 _SCAN_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 _RERANK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -92,19 +93,6 @@ def empty_flat(dim: int, max_elements: int, scan_dtype: str = "bf16",
     )
 
 
-def quantize_int8(rows):
-    """Symmetric per-row int8 as the JAX package's compiled flat_add and
-    flat_search compute it: (int8 rows, f32 scales).  The scale is amax
-    times the f32 constant 1/127 (XLA folds a division by a constant into
-    that product; a true division differs in the last bit of 3% of the
-    scales), the rows are round(rows / scale), a true division."""
-    amax = torch.amax(torch.abs(rows), dim=1)
-    inv127 = float(torch.tensor(1.0) / torch.tensor(127.0))
-    scale = torch.where(amax > 0, amax * inv127, 1.0)
-    q = torch.clamp(torch.round(rows / scale[:, None]), -127, 127)
-    return q.to(torch.int8), scale
-
-
 @torch.no_grad()
 def flat_add(flat: FlatTensors, rows, start: int, count: int) -> FlatTensors:
     """Write the first `count` of `rows` at slots [start, start+count).
@@ -124,25 +112,6 @@ def flat_add(flat: FlatTensors, rows, start: int, count: int) -> FlatTensors:
     return flat
 
 
-def int8_dot(qi, rows):
-    """Exact integer dot products of int8 queries [B, D] and int8 rows
-    [N, D], as f32[B, N].  On the CPU an int32 product; on the card an f32
-    product of the upcast operands, exact while every partial sum stays an
-    integer below 2²⁴, so D goes in pieces of 1040 summed in int32."""
-    if not qi.is_cuda:
-        return torch.matmul(qi.to(torch.int32), rows.to(torch.int32).T).float()
-    d = qi.shape[1]
-    if d <= _EXACT_INT8_TERMS:
-        return torch.matmul(qi.float(), rows.float().T)
-    acc = None
-    for lo in range(0, d, _EXACT_INT8_TERMS):
-        hi = lo + _EXACT_INT8_TERMS
-        part = torch.matmul(qi[:, lo:hi].float(),
-                            rows[:, lo:hi].float().T).to(torch.int32)
-        acc = part if acc is None else acc.add_(part)
-    return acc.float()
-
-
 def scan_tiles(b: int, n_cap: int) -> tuple[int, int]:
     """(queries per block, rows per slab) under SCORE_BUDGET_BYTES: whole
     when it fits; else query blocks over all rows while a block of Q_BLOCK
@@ -156,20 +125,14 @@ def scan_tiles(b: int, n_cap: int) -> tuple[int, int]:
     return qb, max(1, elems // qb)
 
 
-def _scan_candidates(flat: FlatTensors, q, rerank_k: int, m, exact: bool):
-    """Ids i64[B, rerank_k] of the lowest scan scores per query, tombstones
-    and empty slots masked, tiled by `scan_tiles`."""
+def _exact_candidates(flat: FlatTensors, q, rerank_k: int, m):
+    """Ids i64[B, rerank_k] of the lowest scores per query over the rerank
+    rows in full f32, tombstones and empty slots masked, tiled by
+    `scan_tiles`."""
+    require_full_f32_matmul(q.device)
     b, n_cap = q.shape[0], flat.n_cap
     qb, slab = scan_tiles(b, n_cap)
     slab = max(slab, rerank_k)  # every slab but the last fills a top-k
-    int8 = not exact and flat.scan.dtype == torch.int8
-    if exact:
-        require_full_f32_matmul(q.device)
-        qq = q
-    elif int8:
-        qq, qs = quantize_int8(q)
-    else:
-        qq = q.to(torch.bfloat16).float()
     dead = flat.deleted
     if not m.needs_norms:
         # empty slots carry norms=+inf, which l2-style metrics consume; for
@@ -180,13 +143,7 @@ def _scan_candidates(flat: FlatTensors, q, rerank_k: int, m, exact: bool):
         best_s = best_i = None
         for n0 in range(0, n_cap, slab):
             sl = slice(n0, min(n0 + slab, n_cap))
-            if exact:
-                dot = torch.matmul(qq[q0:q0 + qb], flat.rerank[sl].float().T)
-            elif int8:
-                dot = int8_dot(qq[q0:q0 + qb], flat.scan[sl])
-                dot *= qs[q0:q0 + qb, None] * flat.scales[None, sl]
-            else:
-                dot = torch.matmul(qq[q0:q0 + qb], flat.scan[sl].float().T)
+            dot = torch.matmul(q[q0:q0 + qb], flat.rerank[sl].float().T)
             # rank-equivalent scores from the one product (l2 drops +‖q‖²)
             scores = m.matmul_score(dot, flat.norms[None, sl])
             del dot
@@ -251,8 +208,12 @@ def flat_search(flat: FlatTensors, queries, k: int, metric: str,
     rerank_k = max(k, min(rerank_k, flat.n_cap))
     if m.matmul_score is None:
         ids = _chunked_exact_candidates(flat, q, rerank_k, m)
+    elif exact:
+        ids = _exact_candidates(flat, q, rerank_k, m)
     else:
-        ids = _scan_candidates(flat, q, rerank_k, m, exact)
+        # the bf16 or int8 scan: the scan-and-select kernel (K3)
+        ids = scan_topk(flat.scan, flat.scales, flat.norms, flat.deleted,
+                        flat.n, q, rerank_k, metric)[1]
     ids = torch.sort(ids, dim=1).values.to(torch.int32)
     # exact rerank of the candidates (f32 rows, or bf16 rows upcast) through
     # the gather-distance kernel

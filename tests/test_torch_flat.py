@@ -30,6 +30,7 @@ from ocaml_hnsw_tpu.oracle.bruteforce import bruteforce_knn
 
 from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex
 from ocaml_hnsw_tpu_torch.models import flat as tflat
+from ocaml_hnsw_tpu_torch.ops.kernels import scan_topk as k3
 from ocaml_hnsw_tpu_torch.ops import metrics as tmetrics
 
 # One torch thread: under pytest-xdist every worker's default pool (one
@@ -195,7 +196,7 @@ def test_int8_dot_is_exact():
     rng = np.random.RandomState(1)
     a = rng.randint(-127, 128, size=(9, 1100)).astype(np.int8)
     x = rng.randint(-127, 128, size=(50, 1100)).astype(np.int8)
-    got = tflat.int8_dot(torch.from_numpy(a), torch.from_numpy(x))
+    got = k3.int8_dot(torch.from_numpy(a), torch.from_numpy(x))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy().astype(np.int64),
                                   a.astype(np.int64) @ x.astype(np.int64).T)
