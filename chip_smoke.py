@@ -83,12 +83,18 @@ against its plain version on edge cases (B and N no multiple of a tile, D =
 96, 100, 128, 768 and the narrow copy units, bf16 and int8, every metric,
 tombstones, n < N, rerank_k 32, 97 and K_MAX, and rerank_k over K_MAX,
 which takes one launch per page of K_MAX, with rows repeated so that
-scores tie across a page's edge): int8 scores equal bit for bit, bf16
-scores within the f32 summation bound (`k3_agree`).  It is timed
-cold at the main path's shapes (the kNN table's 8192-row block, k = 97; the
-8192-query flat batch, k = 32) and at D1's and D2's captured flat batches,
-beside its bound, its plain version and cuBLAS's bf16 product of the same
-shapes alone.  No scan may take K3's plain route (`read_launches`).
+scores tie across a page's edge), each on every path that takes it (the
+`wgmma` block, of two consumer warpgroups or of one, and the `sync`
+block): int8 scores equal bit for bit, bf16 scores within the f32
+summation bound (`k3_agree`).  It is timed cold at the main path's shapes
+(the kNN table's 8192-row block, k = 97; the 8192-query flat batch, k =
+32: each as planned and on the sync path; G1's int8 kNN block), at k =
+256 on main's rows (the one-warpgroup block, and on the sync path) and at
+D1's and D2's captured flat batches, beside its bound, its plain version,
+cuBLAS's bf16 product of the same shapes alone and a model of the bytes
+its rows travel from L2 to the SMs (`k3_l2_bytes_model`: no L2 counter is
+read).  No scan may take K3's
+plain route (`read_launches`), and no main-path phase its sync path.
 Ground truth everywhere is the harness's `device_ground_truth` (exact f32
 on the card).  Launch counters are zeroed before each phase and read after
 it; a phase whose path runs a kernel fails if that kernel did not launch.
@@ -231,6 +237,8 @@ K3_KS = (32, 97, k3_mod.K_MAX)
 #: version hold in common (the rest tie with the k-th score within the f32
 #: summation bound)
 K3_SHARED = 0.999
+#: K3's kernel on the main path (the wgmma block's instances)
+K3_MAIN_KERNEL = "scan_topk_wgmma"
 #: reps of K3's plain version at the main-path shapes (0.2-2.6 s a call)
 K3_PLAIN_REPS = 3
 
@@ -254,8 +262,9 @@ K3_NO_LIBRARY = ("no single PyTorch call computes it: a product and a top-k "
 K3_REPLACES = ("XLA's MXU dot_general fused with jax.lax.approx_min_k "
                "(ocaml_hnsw_tpu/models/flat.py:170-200), not a Pallas kernel")
 K1_REGS: dict = {}  # registers per K1 instance (phase_build_kernels)
-#: the tensor-core product instructions the build step counts per kernel
-TENSOR_OPS = ("HMMA", "IMMA")
+#: the tensor-core product instructions the build step counts per kernel:
+#: mma.sync's (HMMA, IMMA) and wgmma's (HGMMA, IGMMA)
+TENSOR_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 
 def say(msg: str) -> None:
@@ -535,15 +544,16 @@ def reset_launches() -> None:
         counts.update(dict.fromkeys(counts, 0))
     packed_score.launches = 0
     scan_topk.launches = 0
-    scan_topk.launches_by_dtype.update(
-        dict.fromkeys(scan_topk.launches_by_dtype, 0))
+    for counts in (scan_topk.launches_by_dtype, scan_topk.launches_by_path):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def read_launches() -> dict:
     """Launch counts: each kernel's, K2's by path ("gather_dists/ring",
     ...) and by row dtype ("gather_dists/int8", ...), K3's by scan dtype
-    ("scan_topk/int8", ...).  Raises if any scan took K3's plain route
-    (`scan_topk.plain_routes`): no path of this script may."""
+    ("scan_topk/int8", ...) and by path ("scan_topk/wgmma", ...).  Raises
+    if any scan took K3's plain route (`scan_topk.plain_routes`): no path
+    of this script may."""
     if scan_topk.plain_routes:
         raise AssertionError(f"{scan_topk.plain_routes} scans took K3's "
                              "plain route")
@@ -555,13 +565,20 @@ def read_launches() -> dict:
             **{f"gather_dists/{d}": n
                for d, n in gather_dists.launches_by_dtype.items()},
             **{f"scan_topk/{d}": n
-               for d, n in scan_topk.launches_by_dtype.items()}}
+               for d, n in scan_topk.launches_by_dtype.items()},
+            **{f"scan_topk/{p}": n
+               for p, n in scan_topk.launches_by_path.items()}}
 
 
 def require_launches(phase: str, launches: dict, kernels) -> None:
     for kern in kernels:
         if launches[kern] <= 0:
             raise AssertionError(f"{kern} was not launched in phase {phase}")
+    # the main path's shapes all fit K3's wgmma block: its sync path (PR
+    # 12's kernel, kept for the shapes that do not) must not run there
+    if "scan_topk" in kernels and launches["scan_topk/sync"]:
+        raise AssertionError(f"{launches['scan_topk/sync']} K3 launches took "
+                             f"the sync path in phase {phase}")
 
 
 def busy_share(fn, name: str, again: bool = True) -> dict:
@@ -671,6 +688,13 @@ def phase_build_kernels() -> None:
     for name, (_, regs, spill) in zip(names, kernels):
         name = name.replace("(anonymous namespace)::", "").split("(")[0]
         say(f"[build] {name}: {regs}; {spill}")
+        # K3's instances keep everything in registers (the wgmma block of
+        # two consumer warpgroups: 168 at launch, 232 for the consumers
+        # and 40 for the producer after setmaxnreg; of one: as launched)
+        if "scan_topk::" in name and not spill.startswith("0 bytes stack "
+                                                         "frame, 0 bytes "
+                                                         "spill"):
+            raise AssertionError(f"{name} spills: {spill}")
         if name.startswith("void packed_score_kernel"):
             K1_REGS[name[len("void "):]] = int(regs.split()[1])
     # int -> float conversion instructions per kernel (cuobjdump -sass).
@@ -681,12 +705,15 @@ def phase_build_kernels() -> None:
     sass = sass_op_counts(path, CONVERSIONS + TENSOR_OPS)
     for kernel, counts in sass.items():
         say(f"[build] sass {kernel}: {json.dumps(counts)}")
-        # K3's product runs on the tensor cores: HMMA in its bf16
-        # instances, IMMA in its int8 ones
-        if kernel.startswith("scan_topk_kernel"):
-            # <QT, kInt8, kBound>
-            int8 = kernel.split("<")[1].split(", ")[1] == "true"
-            op = "IMMA" if int8 else "HMMA"
+        # K3's product runs on the tensor cores: wgmma's HGMMA in the
+        # wgmma path's bf16 instances and IGMMA in its int8 ones, HMMA and
+        # IMMA in the sync path's (the mma.sync kernel)
+        if kernel.startswith("scan_topk::scan_topk_"):
+            targs = kernel.split("<")[1].rstrip(">").split(", ")
+            if "scan_topk_wgmma" in kernel:  # <kInt8, kBound, BUF, WGS>
+                op = "IGMMA" if targs[0] == "true" else "HGMMA"
+            else:  # scan_topk_kernel<QT, kInt8, kBound>
+                op = "IMMA" if targs[1] == "true" else "HMMA"
             if counts[op] == 0:
                 raise AssertionError(f"{kernel}: no {op} in its SASS")
         if kernel.startswith(("gather_vec_kernel<signed char",
@@ -1081,31 +1108,49 @@ def k3_product(scan, q):
     return run
 
 
+def k3_l2_bytes_model(scan, plan) -> int:
+    """A model, not a measurement, of the bytes the rows travel from L2 to
+    the SMs in one call of `plan`: every row of a split fetched once per
+    query tile that reads it, 128 bytes a row per 128-byte chunk on the
+    wgmma path (TMA's box), the row's bytes on the sync path (its norm,
+    tombstone and int8 scale aside).  No L2 counter can be read on the
+    card's machine (ncu does not run there)."""
+    n, d = scan.shape
+    if plan.path == "wgmma":
+        row = -(-plan.dp_bytes // k3_mod.CHUNK_BYTES) * k3_mod.CHUNK_BYTES
+        return plan.qtiles * n * row
+    return plan.qtiles * n * d * scan.element_size()
+
+
 def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
-            time_it: bool = False) -> dict:
-    """scan_topk against scan_topk_plain on `args` (scan, scales, norms,
-    deleted, n, q) by `k3_agree`; with `time_it`, both cold beside the
-    bound, and the bf16 product alone (`k3_product`)."""
+            time_it: bool = False, path: str | None = None) -> dict:
+    """scan_topk (on `path` when given) against scan_topk_plain on `args`
+    (scan, scales, norms, deleted, n, q) by `k3_agree`; with `time_it`,
+    both cold beside the bound, and the bf16 product alone
+    (`k3_product`)."""
     scan, q = args[0], args[5]
-    s, i = scan_topk(*args, rerank_k, metric)
+    s, i = scan_topk(*args, rerank_k, metric, path=path)
     s_ref, i_ref = scan_topk_plain(*args, rerank_k, metric)
     torch.cuda.synchronize()
     agree = k3_agree(label, scan, q, s, i, s_ref, i_ref, metric)
     fin = torch.isfinite(s_ref)
     err = float((s[fin] - s_ref[fin]).abs().max()) if fin.any() else 0.0
     b, dim = q.shape
-    plan = k3_mod.plan_for(scan, b, min(rerank_k, k3_mod.K_MAX))
+    plan = k3_mod.plan_for(scan, b, min(rerank_k, k3_mod.K_MAX), path=path)
     row = dict(case=label, shape=[b, scan.shape[0], dim, rerank_k],
                dtype=str(scan.dtype).replace("torch.", ""), metric=metric,
-               max_abs_err=err, plan=dict(qt=plan.qt, stages=plan.stages,
-                                          splits=plan.splits, vec=plan.vec,
-                                          smem=plan.smem_bytes,
-                                          pages=-(-rerank_k // k3_mod.K_MAX)))
+               max_abs_err=err, path=plan.path,
+               l2_sm_bytes_model=k3_l2_bytes_model(scan, plan),
+               plan=dict(path=plan.path, qt=plan.qt, stages=plan.stages,
+                         buf=plan.buf, producer=plan.producer,
+                         splits=plan.splits,
+                         vec=plan.vec, smem=plan.smem_bytes,
+                         pages=-(-rerank_k // k3_mod.K_MAX)))
     timing = ""
     if time_it:
         nbytes, ops, peak = k3_cost(scan, q, rerank_k)
-        ms = device_ms(lambda: scan_topk(*args, rerank_k, metric), flush,
-                       reps=10)
+        ms = device_ms(lambda: scan_topk(*args, rerank_k, metric, path=path),
+                       flush, reps=10)
         plain_ms = device_ms(lambda: scan_topk_plain(*args, rerank_k,
                                                      metric),
                              flush, reps=K3_PLAIN_REPS, warmup=1)
@@ -1116,7 +1161,8 @@ def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
                    tops=ops / ms / 1e9)
         timing = (f"; {nbytes / 1e6:.1f} MB, {ops / 1e12:.2f} T ops, bound "
                   f"{bms:.3f} ms ({by}); kernel {ms:.3f} ms = {bms / ms:.1%}"
-                  f" of bound, {row['tops']:.1f} T ops/s; plain "
+                  f" of bound, {row['tops']:.1f} T ops/s, L2->SM (model) "
+                  f"{row['l2_sm_bytes_model'] / 1e9:.2f} GB; plain "
                   f"{plain_ms:.2f} ms; bf16 product alone {product_ms:.3f} ms")
     say(f"[K3 scan_topk] {label} B={b} N={scan.shape[0]} D={dim} "
         f"k={rerank_k} {row['dtype']} {metric} "
@@ -1125,63 +1171,105 @@ def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
     return row
 
 
+def k3_paths(args, rerank_k: int) -> list:
+    """The paths of K3 whose block takes these inputs (forced in turn where
+    both do); a rerank_k over K_MAX also as the plan routes each page
+    (None: the pages of kcap 256 and the last, bounded, each on the path
+    its shape takes)."""
+    scan, q = args[0], args[5]
+    out = [None] if rerank_k > k3_mod.K_MAX else []
+    for path in k3_mod.PATHS:
+        try:
+            k3_mod.plan_for(scan, q.shape[0], min(rerank_k, k3_mod.K_MAX),
+                            path=path)
+        except ValueError:
+            continue
+        out.append(path)
+    return out
+
+
 def check_k3_edges(gen) -> list[dict]:
     """K3 against its plain version at K3_EDGE for every width of K3_DIMS,
     both scan dtypes and every metric (rerank_k cycling through K3_KS),
     then the narrow copy units (bf16 D=101, int8 D=99 and D=100, a bf16
-    base 8 bytes off 16), few live rows, and one query."""
+    base 8 bytes off 16), few live rows and one query, each on every path
+    that takes it (`k3_paths`).  The wgmma block has two consumer
+    warpgroups at most of them and one at rerank_k 256, at the paged
+    cases' kcap 256 and at D = 768."""
     b, n_rows, n_live = K3_EDGE
     rows = []
+
+    def on_paths(label, args, k, metric):
+        paths = k3_paths(args, k)
+        if not paths:
+            raise AssertionError(f"K3 {label}: no path takes it")
+        for path in paths:
+            rows.append(k3_case(f"{label} [{path or 'by page'}]", args, k,
+                                metric, path=path))
+
     cases = [(dim, dtype, metric) for dim in K3_DIMS
              for dtype in ("bf16", "int8")
              for metric in ("l2", "ip", "cosine")]
     for c, (dim, dtype, metric) in enumerate(cases):
         k = K3_KS[c % len(K3_KS)]
-        rows.append(k3_case(f"edge {dtype} D={dim} {metric} k={k}",
-                            k3_inputs(b, n_rows, n_live, dim, dtype, metric,
-                                      gen), k, metric))
+        on_paths(f"edge {dtype} D={dim} {metric} k={k}",
+                 k3_inputs(b, n_rows, n_live, dim, dtype, metric, gen), k,
+                 metric)
     for dim, dtype, off in ((101, "bf16", 0), (99, "int8", 0),
                             (100, "int8", 0), (100, "bf16", 1)):
         args = k3_inputs(b, n_rows + off, n_live, dim, dtype, "l2", gen)
         args = tuple(t[off:] for t in args[:4]) + args[4:]
-        rows.append(k3_case(f"narrow copies {dtype} D={dim} offset {off}",
-                            args, 97, "l2"))
-    rows.append(k3_case("few live rows", k3_inputs(37, 300, 120, 128, "bf16",
-                                                   "ip", gen, 0.5),
-                        97, "ip"))
-    rows.append(k3_case("one query", k3_inputs(1, n_rows, n_live, 128, "int8",
-                                               "cosine", gen), 32, "cosine"))
+        on_paths(f"narrow copies {dtype} D={dim} offset {off}", args, 97,
+                 "l2")
+    on_paths("few live rows", k3_inputs(37, 300, 120, 128, "bf16", "ip", gen,
+                                        0.5), 97, "ip")
+    on_paths("one query", k3_inputs(1, n_rows, n_live, 128, "int8", "cosine",
+                                    gen), 32, "cosine")
     # rerank_k over K_MAX: pages of K_MAX, each bounded by the page before;
     # the second third of the rows repeats the first, so scores tie across
     # page edges (int8: exactly), and some queries are rows
-    for dtype, metric, dim, k in (("int8", "ip", 96, 600),
-                                  ("bf16", "l2", 128, 300),
-                                  ("int8", "cosine", 100, 257)):
-        args = k3_inputs(b, n_rows, n_live, dim, dtype, metric, gen)
+    for dtype, metric, dim, k, bq in (("int8", "ip", 96, 600, b),
+                                      ("bf16", "l2", 128, 300, b),
+                                      ("int8", "cosine", 100, 257, b)):
+        args = k3_inputs(bq, n_rows, n_live, dim, dtype, metric, gen)
         third = n_live // 3
         for t in args[:3]:
             t[third:2 * third] = t[:third]
         q = args[5].clone()
-        q[:b // 4] = args[0][:b // 4].float() * (
-            args[1][:b // 4, None] if dtype == "int8" else 1.0)
-        rows.append(k3_case(f"paged {dtype} D={dim} {metric} k={k}, "
-                            "repeated rows", args[:5] + (q,), k, metric))
+        q[:bq // 4] = args[0][:bq // 4].float() * (
+            args[1][:bq // 4, None] if dtype == "int8" else 1.0)
+        on_paths(f"paged {dtype} D={dim} {metric} k={k}, repeated rows",
+                 args[:5] + (q,), k, metric)
     return rows
 
 
 def check_k3_main(x, qps_queries, flush) -> list[dict]:
     """K3 timed at the main path's shapes on main's rows: the kNN table's
     8192-row block (k = KNN_K + 1 + 32) and the flat batch (8192 queries,
-    k = 32)."""
+    k = 32), bf16, then G1's int8 kNN block; each as its plan runs it, and
+    the bf16 rows again on the sync path (the mma.sync kernel), for the record.
+    Then the flat batch at k = K_MAX (lists of 256: the one-warpgroup
+    wgmma block, off the main path) as planned and on the sync path."""
+    k = KNN_K + 1 + 32
+    qq = torch.from_numpy(qps_queries).to(DEV)
     flat = bulk_mod.flat_from_rows(x, "l2")
     args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n)
-    qq = torch.from_numpy(qps_queries).to(DEV)
-    rows = [k3_case(f"kNN-table block {QPS_BATCH}x{N}", (*args, x[:QPS_BATCH]),
-                    KNN_K + 1 + 32, "l2", flush, time_it=True),
-            k3_case(f"flat batch {QPS_BATCH}x{N}", (*args, qq), 32, "l2",
-                    flush, time_it=True)]
+    rows = []
+    for label, q, kk in ((f"kNN-table block {QPS_BATCH}x{N}", x[:QPS_BATCH],
+                          k),
+                         (f"flat batch {QPS_BATCH}x{N}", qq, 32),
+                         (f"flat batch {QPS_BATCH}x{N} k={k3_mod.K_MAX}", qq,
+                          k3_mod.K_MAX)):
+        rows.append(k3_case(label, (*args, q), kk, "l2", flush, time_it=True))
+        rows.append(k3_case(f"{label} [sync path]", (*args, q), kk, "l2",
+                            flush, time_it=True, path="sync"))
+    del flat, args
+    flat = bulk_mod.flat_from_rows(x, "l2", scan_dtype="int8")
+    rows.append(k3_case(f"G1 int8 kNN-table block {QPS_BATCH}x{N}",
+                        (flat.scan, flat.scales, flat.norms, flat.deleted,
+                         flat.n, x[:QPS_BATCH]), k, "l2", flush,
+                        time_it=True))
     return rows
-
 
 
 def check_k1_main(packed, qps_queries, captured, flush, gen) -> list[dict]:
@@ -2559,11 +2647,13 @@ def main(argv: list[str]) -> int:
                      ["scan_topk", "scan_topk/bf16", "gather_dists"])
     flat_busy = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
                            "flat_batch")
-    # the trace must hold K3's kernel: the busy share and any device time
-    # read from a trace count it
-    if not any("scan_topk_kernel" in k for k in flat_busy["names"]):
+    # the trace must hold K3's kernel (the wgmma path's: the main shapes
+    # all take it): the busy share and any device time read from a trace
+    # count it
+    if not any(K3_MAIN_KERNEL in k for k in flat_busy["names"]):
         raise AssertionError("the main flat batch's profile holds no "
-                             "scan_topk_kernel record")
+                             f"{K3_MAIN_KERNEL} record: "
+                             f"{json.dumps(flat_busy['top'])}")
     # the batch's own time, host clock around a synchronize, median of 5
     times = []
     for _ in range(5):
@@ -2576,7 +2666,7 @@ def main(argv: list[str]) -> int:
     # records (busy_share): printed, not required
     plain = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
                        "flat_batch_plain", again=False)
-    k3_in = any("scan_topk_kernel" in k for k in plain["names"])
+    k3_in = any(K3_MAIN_KERNEL in k for k in plain["names"])
     say(f"[main flat batch] {QPS_BATCH} queries over {N}x{DIM} bf16 scan: "
         f"{flat_ms:.2f} ms = {QPS_BATCH / flat_ms * 1e3:.0f} QPS (median of "
         f"5); profiled: {fmt_share(flat_busy)}; device time by kernel "
@@ -2709,7 +2799,10 @@ def main(argv: list[str]) -> int:
                       "requested_bytes": r["requested_bytes"]}
                      for r in k2_rows if "ms" in r]),
         dict(name="scan_topk", route="cuda",
-             source="ocaml_hnsw_tpu_torch/csrc/scan_topk.cu",
+             source="ocaml_hnsw_tpu_torch/csrc/scan_topk_wgmma.cu",
+             sources=["ocaml_hnsw_tpu_torch/csrc/scan_topk_wgmma.cu",
+                      "ocaml_hnsw_tpu_torch/csrc/scan_topk.cu",
+                      "ocaml_hnsw_tpu_torch/csrc/scan_topk.cuh"],
              replaces="ocaml_hnsw_tpu/models/flat.py:170",
              replaces_note=K3_REPLACES,
              launches=launches["scan_topk"],
@@ -2721,6 +2814,9 @@ def main(argv: list[str]) -> int:
                  p: {dt: c[f"scan_topk/{dt}"]
                      for dt in k3_mod.DTYPE_NAMES.values()}
                  for p, c in by_phase.items()},
+             launches_by_path_by_phase={
+                 p: {path: c[f"scan_topk/{path}"] for path in k3_mod.PATHS}
+                 for p, c in by_phase.items()},
              plain_routes=scan_topk.plain_routes,
              max_abs_err=max(r["max_abs_err"] for r in k3_rows),
              **{k: headline_k3[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2729,7 +2825,8 @@ def main(argv: list[str]) -> int:
              product_ms=headline_k3["product_ms"],
              shapes=[{"case": r["case"], "shape": r["shape"],
                       "dtype": r["dtype"], "metric": r["metric"],
-                      "plan": r["plan"], "product_ms": r["product_ms"],
+                      "path": r["path"], "plan": r["plan"],
+                      "product_ms": r["product_ms"],
                       **{s: r[s] for s in shapes}}
                      for r in k3_rows if "ms" in r]),
     ]}

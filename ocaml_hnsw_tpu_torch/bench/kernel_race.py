@@ -13,13 +13,20 @@ E's shard step (B = 8192 over a 100k-node payload), at phase F2's slots=16
 refined deg-16 payload (B = 4096, [1M, 16, 128]), K2 f32 l2 at (8192, 32), (8192, 8) and (1024, 97) over
 1M x 128 rows, K2 cosine at phase B's query and build blocks, (4096, 96) and
 (2048, 96), over 96k x 768 unit f32 rows (laion-streaming's width), at
-phase B8's, (4096, 96) and (1024, 96), over the same rows stored int8, and
-K2 int8 l2 at (8192, 32) over 1M x 96 rows (deep10m's width).  The
-processes run in turns (other, this, this, other) so that drift of the card
-shows; a result is the median over both turns of each checkout.
+phase B8's, (4096, 96) and (1024, 96), over the same rows stored int8,
+K2 int8 l2 at (8192, 32) over 1M x 96 rows (deep10m's width), and K3
+(`scan_topk`) at the kNN table's block (8192 of the rows as queries, k =
+97) and the flat batch (8192 queries, k = 32) over 1M x 128 bf16 rows,
+G1's int8 kNN block over the same rows stored int8, and D2's flat batch
+(8192 queries, k = 32) over 10M x 96 int8 rows; K3 only with the L2
+flushed by a read, `K3_REPS` reps.  The processes run in turns (other,
+this, this, other) so that drift of the card shows; a result is the median
+over both turns of each checkout.
 
 Each process also keeps one call's output per case: the report says
-whether the two checkouts' outputs are bit-equal, and counts the
+whether the two checkouts' outputs are bit-equal (K3 over bf16 rows: its
+scores within the f32 summation bound of the other's, as the two kernels
+sum the product in other orders; `k3_within_bound`), and counts the
 int->float conversion instructions (`I2F`, `I2FP`) in each checkout's
 built kernels by `cuobjdump -sass`.
 
@@ -67,6 +74,12 @@ K2_INT8_WIDE_SHAPES = ((4096, 96), (1024, 96))
 INT8_ROWS, INT8_DIM, K2_INT8_SHAPE = 1_000_000, 96, (8192, 32)
 K1_INT4_B = 4096
 K1_DEG16_B, DEG16 = 4096, 16
+#: K3: (label, queries, k, scan dtype, rows, D); main's shapes, G1's, D2's
+K3_CASES = (("kNN block", 8192, 97, "bf16", N_ROWS, DIM),
+            ("flat batch", 8192, 32, "bf16", N_ROWS, DIM),
+            ("int8 kNN block", 8192, 97, "int8", N_ROWS, DIM),
+            ("int8 flat batch D2", 8192, 32, "int8", 10_002_432, 96))
+K3_REPS = 5
 MODES = ("warm", "read", "write", "enqueue")
 THIS = Path(__file__).resolve().parents[2]
 #: the conversion instructions `sass_op_counts` counts
@@ -169,12 +182,17 @@ def _worker(tree: str, reps: int, dump: str) -> None:
     g = torch.Generator(device=dev).manual_seed(2024)
     out, outputs = [], {}
 
-    def case(kernel: str, shape, nbytes: int, fn) -> None:
-        """Times fn under every mode and keeps one of its outputs."""
-        outputs[f"{kernel} {list(shape)}"] = fn()
-        for mode in MODES:
+    def case(kernel: str, shape, nbytes: int, fn, modes=MODES,
+             n_reps=None, extra=()) -> None:
+        """Times fn under `modes` and keeps one of its outputs (with
+        `extra` tensors beside it)."""
+        got = fn()
+        outputs[f"{kernel} {list(shape)}"] = (
+            tuple(got) if isinstance(got, tuple) else (got,)) + tuple(extra)
+        for mode in modes:
             out.append(dict(kernel=kernel, shape=list(shape), mode=mode,
-                            bytes=nbytes, ms=time_ms(fn, mode, reps, flush)))
+                            bytes=nbytes,
+                            ms=time_ms(fn, mode, n_reps or reps, flush)))
 
     big = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(big)
@@ -282,22 +300,78 @@ def _worker(tree: str, reps: int, dump: str) -> None:
                       + b * WIDE_DIM * 4 + b * k * 8)
             case(f"gather_dists{storage} cosine", [b, k, WIDE_DIM], nbytes,
                  lambda: gather_dists(vec, sc, q, ids, "cosine"))
-    torch.save({key: tuple(t.cpu() for t in (o if isinstance(o, tuple)
-                                              else (o,)))
+    k3_cases(case, dev, g)
+    torch.save({key: tuple(t.cpu() for t in o)
                 for key, o in outputs.items()}, dump)
     out.append(dict(kernel="sass", counts=sass_op_counts(_lib.build())))
     print(json.dumps(out))
 
 
+def k3_cases(case, dev, g) -> None:
+    """K3 at K3_CASES: the rows and queries from `g`, the flat made by the
+    checkout's own `flat_from_rows`; its bytes as chip_smoke counts them.
+    A bf16 case keeps, beside its (scores, ids), each query's f32
+    summation bound (`k3_within_bound`)."""
+    import torch
+
+    from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
+    from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import scan_topk
+
+    flats = {}
+    for label, b, k, dtype, n, d in K3_CASES:
+        if (dtype, n, d) not in flats:
+            flats.clear()
+            rows = torch.randn((n, d), device=dev, generator=g)
+            flats[(dtype, n, d)] = (rows[:b].clone(), bulk_mod.flat_from_rows(
+                rows, "l2", scan_dtype=dtype))
+            del rows
+        base, flat = flats[(dtype, n, d)]
+        q = base if "kNN" in label else torch.randn((b, d), device=dev,
+                                                    generator=g)
+        args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n, q)
+        row = d * flat.scan.element_size() + 5 + (4 if dtype == "int8" else 0)
+        extra = ()
+        if dtype == "bf16":
+            # 2 (l2) x 2 D 2^-24 x sum |q_i x_i| <= |q| max|x| (bf16 values)
+            xmax = torch.linalg.norm(flat.scan.float(), dim=1).max()
+            qn = torch.linalg.norm(q.to(torch.bfloat16).float(), dim=1)
+            extra = (4 * d * 2.0 ** -24 * qn * xmax,)
+        case(f"scan_topk {label}", [b, n, d, k], n * row + b * d * 4
+             + b * k * 12, lambda: scan_topk(*args, k, "l2"), modes=("read",),
+             n_reps=K3_REPS, extra=extra)
+    flats.clear()
+
+
+def k3_within_bound(a, b) -> bool:
+    """Two K3 outputs (scores, ids, per-query bound) over bf16 rows: every
+    finite score within the bound (plus the epilogue's last rounding) of
+    the other's at the same slot, the same slots finite, and at least
+    99.9% of the (query, slot) ids shared."""
+    import torch
+
+    fin = torch.isfinite(a[0])
+    if not torch.equal(fin, torch.isfinite(b[0])):
+        return False
+    tol = a[2][:, None] + 2.0 ** -22 * b[0].abs()
+    if ((a[0] - b[0]).abs() > tol)[fin].any():
+        return False
+    shared = (a[1][:, :, None] == b[1][:, None, :]).any(-1) & fin
+    return float(shared.sum()) >= 0.999 * float(fin.sum())
+
+
 def _compare(dumps: dict[str, list[str]]) -> dict[str, bool]:
     """Per case: are the first turn's outputs of both checkouts bit-equal
-    (and each checkout's two turns equal to each other)?"""
+    (K3 over bf16 rows: within its f32 bound, `k3_within_bound`), and each
+    checkout's two turns equal to each other?"""
     import torch
 
     got = {who: [torch.load(f) for f in files] for who, files in dumps.items()}
     same = {}
     for key in got["this"][0]:
         a, b = got["this"][0][key], got["other"][0][key]
+        if key.startswith("scan_topk") and len(a) == 3:
+            same[key] = k3_within_bound(a, b)
+            continue
         same[key] = all(torch.equal(x, y) for x, y in zip(a, b))
         for who in got:
             if not all(torch.equal(x, y) for x, y in
@@ -373,8 +447,10 @@ def main() -> int:
               f"  turns other {[round(t * 1e3, 1) for t in by['other']]} "
               f"this {[round(t * 1e3, 1) for t in by['this']]}")
     for key, eq in same.items():
-        print(f"[race] outputs {key}: "
-              f"{'bit-equal' if eq else 'DIFFER'} between the checkouts")
+        kind = ("within the f32 bound" if key.startswith("scan_topk")
+                and "int8" not in key else "bit-equal")
+        print(f"[race] outputs {key}: {kind if eq else 'DIFFER'} between "
+              f"the checkouts")
     for who, counts in sass.items():
         for kernel, c in counts.items():
             print(f"[race] sass {who} {kernel}: {json.dumps(c)}")

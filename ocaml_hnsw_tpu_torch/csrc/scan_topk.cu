@@ -21,52 +21,88 @@
 // kMaxKcap in pages, each bounded by the last entry of the page before.
 // The order is exact because each block walks its rows in increasing id:
 // a score equal to the threshold when its tile starts has a higher id than
-// the threshold's entry, so the first compare may be strict.
+// the threshold's entry, so the first compare may be strict.  Each block
+// writes its split's list, [B, S, rerank_k] (score, id); the wrapper merges
+// the S lists (one top-k over S·rerank_k per query).
 //
-// What bounds it on an H100: the product.  2·B·N·D operations at 989
-// TFLOP/s (bf16) or 1,979 TOP/s (int8) against the distinct bytes (N rows,
-// their norms, scales and tombstones, B queries, B·rerank_k results) at
-// 3.35 TB/s: at B = 8192 the product is ~120x the bytes' time (the kNN
-// table's 8192 x 1M x 128: 2.2 ms against 0.08 ms).
+// What bounds it on an H100: the product, 2·B·N·D operations at 989
+// TFLOP/s (bf16) or 1,979 TOP/s (int8), against the distinct bytes (N
+// rows, their norms, scales and tombstones, B queries, B·rerank_k results)
+// at 3.35 TB/s: at B = 8192 the product is ~120x the bytes' time (the kNN
+// table's 8192 x 1M x 128: 2.13 ms against 0.08 ms).  Second, the rows'
+// trips from L2 to the SMs: a row tile fetched for Q queries costs N·D
+// bytes of L2 traffic per Q queries, and at Q = 64 (the sync block's kNN
+// plan) the 32 GB it moves take ~4.7 ms at the ~6.8 TB/s L2 gave on an
+// H100, twice the product's bound; the wgmma block fetches a tile for 128
+// queries (a model of the bytes: no L2 counter was read).  Measured per block
+// (bench/k3_timeline.py), the wgmma block spends its time in its epilogue,
+// the compares and appends of a warp whose 16 queries hold a score below
+// their threshold in ~45% of the kNN block's tiles, which its warpgroup
+// waits for at the next tile's collective wgmma (PERF.md §6).
 //
-// The design (a first version: right and simple; wgmma, TMA and warp
-// specialisation are later work):
-//   * A block takes a tile of QT queries (16 to 128, the wrapper's plan)
-//     and one split of the rows (blockIdx.y), 8 warps.  The query tile
-//     stays in shared memory for all of D (zero-padded to a multiple of 32
-//     bytes, one mma k-step); the rows come through a ring of 2 to 8
-//     shared-memory stages of RT rows x 128 bytes, filled by cp.async
-//     (16, 8 or 4 bytes a copy as the rows' width and alignment allow;
-//     2- or 1-byte rows, e.g. bf16 D odd, by plain loads), so D of any
-//     width is a walk over 128-byte chunks of each row tile.
-//   * The product runs on the tensor cores with mma.sync: m16n8k16 bf16 ->
-//     f32, or m16n8k32 s8 -> s32 (exact).  The fragments of both types are
-//     the same bytes, so both load by ldmatrix from rows padded by 16 bytes
-//     (conflict-free), one k-step ahead of the products.  A warp owns a
-//     32-query x 32-row (or 16 x 32) tile.
-//   * The epilogue makes the scores in registers as bias - coef * dot (the
-//     bias +inf for a row that is out), and compares each with its query's
-//     threshold (the rerank_k-th score kept so far; -inf for a query past
-//     B): most fail that one compare.  A score below it is checked
-//     against the threshold's (score, id) as it stands (a merge may have
-//     lowered it) and the page's bound; one still in is appended to its
-//     query's buffer of kBuf entries in shared
-//     memory (an atomic slot); a full buffer is merged into the query's
-//     sorted list of kcap entries by one warp (bitonic networks), which
-//     lowers the threshold.  A score that finds its buffer full stays in
-//     its register until the block has merged (no bound on how many of a
-//     tile's scores may pass).
-//   * Each block writes its split's list, [B, S, rerank_k] (score, id);
-//     the wrapper merges the S lists (one top-k over S·rerank_k per query,
-//     a small fraction of the work).
-//   * Blocks run query tile fastest (blockIdx.x), so the query tiles of
-//     one split run together and read each row tile from device memory
-//     once and from L2 after that.
+// Two paths, chosen by shape (launch_plan, never after an error):
 //
-// Where its time goes (NVIDIA H100 80GB HBM3, 700 W; PERF.md): at the kNN
-// table's 8192 x 1M x 128 block it takes ~29 ms against a 2.1 ms bound and
-// cuBLAS's 7.3 ms for the product alone.  Wider warp tiles (255 registers)
-// and larger query tiles were slower.
+// wgmma (csrc/scan_topk_wgmma.cu): every shape whose block fits.
+//   * Roles: 384 threads.  Consumer warpgroups 0 and 1 own 64 queries each
+//     (wgmma's M); one producer warp keeps the ring full.  The producer's
+//     warpgroup lowers its registers (setmaxnreg 40), the consumers raise
+//     theirs (232).  Where two warpgroups' lists and query tiles pass
+//     shared memory (kcap 256, the pages of a rerank_k over 256; rows of
+//     768 bytes and more), the block has one consumer warpgroup (64
+//     queries, 256 threads) and no ping-pong.
+//   * The product: wgmma.mma_async m64n64k16 .f32.bf16.bf16 or m64n64k32
+//     .s32.s8.s8, A (the warpgroup's 64 queries) from shared memory,
+//     loaded once per block, B (a 64-row tile) from the ring, both K-major
+//     with the 128-byte swizzle.
+//   * The ring: items of 64 rows x 128 bytes, a full and an empty mbarrier
+//     each.  TMA (cp.async.bulk.tensor.2d over a [N, row_bytes] byte map,
+//     encoded per launch through cudaGetDriverEntryPoint, passed as a
+//     __grid_constant__ CUtensorMap) brings them; its zero fill covers the
+//     ragged last tile and D's padding to a 32-byte k-step.  Rows TMA
+//     refuses (a stride or base not a multiple of 16 bytes: D1's 200-byte
+//     glove rows) are copied by the producer's 32 lanes with cp.async (16,
+//     8 or 4 bytes) into the same swizzled layout; they arrive on the same
+//     full barrier (cp.async.mbarrier.arrive.noinc), so a consumer does
+//     not know which producer filled an item.  Each tile's side data (its
+//     bias: ‖x‖² or 0, +inf at a tombstone, past N and, for the norm-free
+//     metrics, at j >= n; int8 row scales) is read from the flat by the
+//     producer warpgroup's other three warps, a tile each in turn, and
+//     comes to the consumers through a ring of its own (6 slots, a full
+//     and an empty mbarrier each): read by the producer warp itself, the
+//     loads' latency held the ring back (D2's batch 67.85 -> 87.95 ms on
+//     an H100).  (A cluster of two
+//     blocks sharing each fetch by TMA multicast, 256 queries per fetch,
+//     was slower at the main shapes: PERF.md §6.)
+//   * Merges local to their warp: the epilogue makes each score in
+//     registers from the accumulators, compares it with its query's
+//     threshold, held in registers (each thread has two queries), and
+//     appends those below to the query's buffer of 16 or 32 entries in
+//     shared memory (one shared atomic per lane and query for the slots);
+//     a full buffer is merged into the query's sorted list in registers
+//     (merge_rank: each entry's place is its rank in the list, by binary
+//     search, plus its rank in the other side).  A query's scores of a
+//     tile lie in one warp (wgmma's accumulator layout), so a merge
+//     synchronises only that warp (__syncwarp; the warpgroup's own named
+//     barrier, bar.sync 1 + wg, 128, orders the staging of its query
+//     tile): no merge stops the producer or the other warpgroup, and none
+//     uses __syncthreads.
+//   * Overlap: the two consumer warpgroups ping-pong on the tensor cores;
+//     each issues a tile's products (wgmma.commit_group, wait_group 0),
+//     releases its items and runs the tile's epilogue while the other's
+//     products run.  (A second accumulator set per warpgroup, to issue
+//     tile t + 1 before tile t's epilogue, gained nothing: ptxas put
+//     warpgroup-wide waits into the epilogue to read the registers.)
+//
+// sync (this file): the first design's block, for the shapes the wgmma block
+// cannot hold: rows copied in 2- or 1-byte units (bf16 D odd, int8 D not a
+// multiple of 4) and rows so wide that even a 64-query block's lists, query
+// tile and a tile's ring items pass shared memory (D = 768 bf16 at rerank_k
+// 33 and more, kcap 256 past 640-byte rows).  A tile of QT queries (16 to
+// 128) and a row split, 8 warps of mma.sync (m16n8k16 bf16 or m16n8k32 s8 by
+// ldmatrix) in lockstep over a cp.async ring of 128-byte row chunks, the
+// same lists, buffers and merges, each merge behind __syncthreads_or.
+//
+// Where its time goes: PERF.md §6 (NVIDIA H100 80GB HBM3, 700 W).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,37 +110,17 @@
 
 #include <type_traits>
 
+#include "scan_topk.cuh"
+
+namespace scan_topk {
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChunk = 128;             // row bytes per ring stage
-constexpr int kStep = 32;               // row bytes per mma k-step
 constexpr int kRowStride = kChunk + 16;  // a staged row chunk, padded
-constexpr int kMaxKcap = 256;           // K_MAX in the wrapper
 constexpr int kBuf = 32;                // buffer entries per query
 constexpr int kMaxStages = 8;
-constexpr uint32_t kInfBits = 0x7f800000u;
-
-struct Args {
-  const uint8_t* rows;     // [N, row_bytes]: bf16 or int8 rows
-  const float* scales;     // [N] (int8 rows)
-  const float* norms;      // [N] (l2)
-  const uint8_t* deleted;  // [N] bool
-  const int* n_live;       // the occupied count n (device scalar)
-  const uint8_t* q;        // [B, dp_bytes] queries, zero-padded
-  const float* qs;         // [B] int8 query scales
-  const float* lb_s;       // [B] the page's bound (score, id), or null
-  const int* lb_i;
-  float* out_s;            // [B, S, K]
-  int* out_i;              // [B, S, K]
-  int B, N, row_bytes, dp_bytes, K, kcap, split_rows, S, l2, mask_n, vec,
-      stages;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
                                             uint32_t& r1, uint32_t& r2,
@@ -131,27 +147,6 @@ __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async(uint8_t* dst, const uint8_t* src,
-                                         int bytes) {
-  const uint32_t d = smem_u32(dst);
-  switch (bytes) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
-                   "l"(src)
-                   : "memory");
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d),
-                   "l"(src)
-                   : "memory");
-      break;
-    default:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
-                   "l"(src)
-                   : "memory");
-  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -183,54 +178,6 @@ __device__ __forceinline__ void zero_bytes(uint8_t* dst, int bytes) {
   }
 }
 
-// (score, id) order: score, then id as unsigned (the empty entry, id -1
-// with score +inf, sorts last)
-__device__ __forceinline__ bool before(uint2 x, uint2 y) {
-  const float sx = __uint_as_float(x.x), sy = __uint_as_float(y.x);
-  return sx < sy || (sx == sy && x.y < y.y);
-}
-
-// One compare-exchange step of a bitonic network over v[0, n): pairs (i,
-// i + j) for every i with bit j clear; `dir` gives each pair's direction
-// (true: descending).  Lanes take the pairs in turn.
-template <typename Dir>
-__device__ __forceinline__ void bitonic_step(uint2* v, int n, int j, int lane,
-                                             Dir dir) {
-  for (int p = lane; p < (n >> 1); p += 32) {
-    const int i = 2 * p - (p & (j - 1));
-    const int l = i + j;
-    const uint2 x = v[i], y = v[l];
-    if (dir(i) ? before(x, y) : before(y, x)) {
-      v[i] = y;
-      v[l] = x;
-    }
-  }
-  __syncwarp();
-}
-
-// One warp merges a query's buffer (its first c of kBuf entries, right
-// after the list) into its sorted list of kcap entries: the buffer, padded
-// with empty entries, is sorted descending (bitonic); a half-cleaner
-// against the list's last kBuf entries (ascending) leaves there the kBuf
-// smallest of both, bitonic, which a bitonic merge sorts descending; the
-// list is then ascending || descending, and one bitonic merge sorts it.
-__device__ void merge_buffer(uint2* list, int kcap, int c, int lane) {
-  uint2* buf = list + kcap;
-  uint2* tail = list + kcap - kBuf;
-  const uint2 empty = make_uint2(kInfBits, 0xffffffffu);
-  if (c + lane < kBuf) buf[c + lane] = empty;
-  __syncwarp();
-  for (int k = 2; k <= kBuf; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1)
-      bitonic_step(buf, kBuf, j, lane, [k](int i) { return (i & k) == 0; });
-  if (before(buf[lane], tail[lane])) tail[lane] = buf[lane];
-  __syncwarp();
-  for (int j = kBuf >> 1; j > 0; j >>= 1)
-    bitonic_step(tail, kBuf, j, lane, [](int) { return true; });
-  for (int j = kcap >> 1; j > 0; j >>= 1)
-    bitonic_step(list, kcap, j, lane, [](int) { return false; });
-}
-
 // Warps merge the queries whose buffers hold at least `least` entries
 // (kBuf: the full ones; 1: every non-empty one) and set their thresholds
 // (score, id; the id 0 while the score is +inf).
@@ -242,7 +189,7 @@ __device__ void merge_queries(uint2* lists, float* thr, uint32_t* thr_id,
     const int c = cnt[r];
     if (c < least) continue;
     uint2* list = lists + (kcap + kBuf) * r;
-    merge_buffer(list, kcap, min(c, kBuf), lane);
+    merge_rank(list, kcap, min(c, kBuf), lane);
     if (lane == 0) {
       cnt[r] = 0;
       thr[r] = __uint_as_float(list[K - 1].x);
@@ -291,9 +238,9 @@ __device__ __forceinline__ void load_chunk(const Args& a, uint8_t* st,
   }
 }
 
-// QT queries per block; a warp owns (16 MT) queries x 32 rows: WM x WN
-// warps cover the QT x RT tile.  kBound: the launch has a page bound (an
-// instance of its own: the bound's check in the epilogue slows the
+// The sync path.  QT queries per block; a warp owns (16 MT) queries x 32
+// rows: WM x WN warps cover the QT x RT tile.  kBound: the launch has a page
+// bound (an instance of its own: the bound's check in the epilogue slows the
 // unbounded launches by 7-10% on an H100).
 template <int QT, bool kInt8, bool kBound>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -608,29 +555,42 @@ int dispatch(int op, int dtype, int qt, bool bound, const Args& a,
 
 }  // namespace
 
+}  // namespace scan_topk
+
+using scan_topk::Args;
+
 // dtype 0 = bf16 rows and queries, 1 = int8 (with scales and qs); lb_s,
-// lb_i: each query's bound (f32, int32 [B]; null for none): only entries
-// after it in (score, id) order are kept; K = rerank_k <= kcap (a power of
-// two, 32..256); qt: queries per block (16, 32, 64, 128); split_rows: rows
-// per split (a multiple of the row tile), S splits cover N; l2: 1 for
-// norms - 2 dot, 0 for -dot; mask_n: +inf at j >= *n_live; vec: bytes per
-// row copy (16, 8, 4 by cp.async, 2 or 1 by plain loads); stages: ring
-// stages (2..8); smem_bytes: the block's dynamic shared memory
+// lb_i: each query's bound
+// (f32, int32 [B]; null for none): only entries after it in (score, id)
+// order are kept; K = rerank_k <= kcap (a power of two, 32..256); path: 0
+// sync, 1 wgmma; qt: queries per block (sync: 16, 32, 64, 128; wgmma:
+// 64 or 128); buf: buffer entries per query (sync: 32; wgmma: 16 or 32);
+// split_rows: rows per split (a multiple of the row tile), S splits cover
+// N; l2: 1 for norms - 2 dot, 0 for -dot; mask_n: +inf at j >= *n_live;
+// vec: bytes per row copy (16, 8, 4 by cp.async, 2 or 1 by plain loads:
+// sync only); stages: ring stages (sync 2..8, wgmma 2..16); tma: the
+// wgmma producer loads by TMA (else cp.async); smem_bytes: the block's
+// dynamic shared memory
 // (ops/kernels/scan_topk.py::launch_plan).  Returns cudaGetLastError()
-// after the launch.
+// after the launch, or a refusal (scan_topk::kErrTensorMap + CUresult for
+// a tensor map the driver refuses).
 extern "C" int ohnsw_scan_topk(const void* rows, int dtype, const void* scales,
                                const void* norms, const void* deleted,
                                const void* n_live, const void* q,
-                               const void* qs, const void* lb_s,
-                               const void* lb_i, void* out_s, void* out_i,
-                               int B, int N, int row_bytes, int dp_bytes,
-                               int K, int kcap, int qt, int split_rows, int S,
-                               int l2, int mask_n, int vec, int stages,
-                               int smem_bytes, void* stream) {
+                               const void* qs,
+                               const void* lb_s, const void* lb_i,
+                               void* out_s, void* out_i, int B, int N,
+                               int row_bytes, int dp_bytes, int K, int kcap,
+                               int path, int qt, int buf, int split_rows,
+                               int S, int l2, int mask_n, int vec, int stages,
+                               int tma, int smem_bytes,
+                               void* stream) {
+  using scan_topk::kMaxKcap;
+  using scan_topk::kStep;
   if (B == 0 || N == 0) return 0;
   if (K < 1 || K > kcap || kcap < 32 || kcap > kMaxKcap ||
       (kcap & (kcap - 1)) || dp_bytes % kStep || row_bytes > dp_bytes ||
-      row_bytes % vec || stages < 2 || stages > kMaxStages || split_rows < 1 ||
+      row_bytes % vec || split_rows < 1 ||
       static_cast<long long>(split_rows) * S < N || S > 65535 ||
       (lb_s == nullptr) != (lb_i == nullptr) ||
       (vec != 16 && vec != 8 && vec != 4 && vec != 2 && vec != 1))
@@ -647,17 +607,27 @@ extern "C" int ohnsw_scan_topk(const void* rows, int dtype, const void* scales,
                static_cast<float*>(out_s),
                static_cast<int*>(out_i),
                B, N, row_bytes, dp_bytes, K, kcap, split_rows, S, l2, mask_n,
-               vec, stages};
-  return dispatch(0, dtype, qt, lb_s != nullptr, a, smem_bytes,
-                  static_cast<cudaStream_t>(stream), nullptr);
+               vec, stages, tma};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return scan_topk::wgmma_dispatch(0, dtype, lb_s != nullptr, buf, qt, a,
+                                     smem_bytes, st, nullptr);
+  if (path != 0 || buf != 32 || stages < 2 || stages > 8 || tma)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return scan_topk::dispatch(0, dtype, qt, lb_s != nullptr, a, smem_bytes,
+                             st, nullptr);
 }
 
-// Blocks of the (dtype, qt, bound) instance with smem_bytes of dynamic
-// shared memory that one SM of the current device holds at once, into
-// *per_sm (cudaOccupancyMaxActiveBlocksPerMultiprocessor, as the launch
-// sets it up).
-extern "C" int ohnsw_scan_topk_occupancy(int dtype, int qt, int bound,
-                                         int smem_bytes, int* per_sm) {
-  return dispatch(1, dtype, qt, bound != 0, Args{}, smem_bytes, nullptr,
-                  per_sm);
+// Blocks of the (path, dtype, qt, bound, buf) instance with smem_bytes of
+// dynamic shared memory that one SM of the current device holds at once,
+// into *per_sm (cudaOccupancyMaxActiveBlocksPerMultiprocessor, as the
+// launch sets it up).
+extern "C" int ohnsw_scan_topk_occupancy(int path, int dtype, int qt,
+                                         int bound, int buf, int smem_bytes,
+                                         int* per_sm) {
+  if (path == 1)
+    return scan_topk::wgmma_dispatch(1, dtype, bound != 0, buf, qt, Args{},
+                                     smem_bytes, nullptr, per_sm);
+  return scan_topk::dispatch(1, dtype, qt, bound != 0, Args{}, smem_bytes,
+                             nullptr, per_sm);
 }

@@ -8,7 +8,8 @@ launches in `<wrapper>.launches`.
   kernel `ocaml_hnsw_tpu/ops/pallas/payload_score.py::payload_score`.
 - `gather_dist.gather_dists` — `csrc/gather_dist.cu`; replaces the TPU
   kernel `ocaml_hnsw_tpu/ops/pallas/gather_dist.py::gather_l2`.
-- `scan_topk.scan_topk` — `csrc/scan_topk.cu`; replaces the flat scan the
+- `scan_topk.scan_topk` — `csrc/scan_topk_wgmma.cu` (the `wgmma` path) and
+  `csrc/scan_topk.cu` (the `sync` path); replaces the flat scan the
   JAX package leaves to XLA on the TPU (`ocaml_hnsw_tpu/models/flat.py`:
   the MXU `dot_general` fused with `approx_min_k`).
 """

@@ -37,9 +37,10 @@ _SIGNATURES = {
                            _vp],
     "ohnsw_packed_score_occupancy": [_int, _int, _int, _int, _vp],
     "ohnsw_scan_topk": [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                        _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
-                        _int, _int, _int, _int, _int, _int, _int, _vp],
-    "ohnsw_scan_topk_occupancy": [_int, _int, _int, _int, _vp],
+                        _vp, _vp, _int, _int, _int, _int, _int, _int,
+                        _int, _int, _int, _int, _int, _int, _int, _int,
+                        _int, _int, _int, _vp],
+    "ohnsw_scan_topk_occupancy": [_int, _int, _int, _int, _int, _int, _vp],
 }
 #: dynamic shared memory one block may opt into on Hopper (227 KiB)
 SMEM_LIMIT = 232448

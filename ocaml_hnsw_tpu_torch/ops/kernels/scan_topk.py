@@ -10,18 +10,22 @@ Replaces what the JAX package runs on the TPU for its flat scan
 (`ocaml_hnsw_tpu/models/flat.py:170-200`): XLA's MXU `dot_general` fused
 with `jax.lax.approx_min_k`, the TPU's hardware PartialReduce inside the
 score stream, so the [B, N] score block never reaches memory.  The kernel
-keeps it out of memory too: the product runs on the tensor cores
-(`mma.sync`) and each query's top list is kept in shared memory behind a
-running threshold.  It is bound by its operations: 2·B·N·D at 989 TFLOP/s
-(bf16) or 1,979 TOP/s (int8) against the distinct bytes at 3.35 TB/s
-(`chip_smoke.py` times it beside that bound).  Design: the source's note.
+keeps it out of memory too: the product runs on the tensor cores and each
+query's top list is kept in shared memory behind a running threshold.  It
+is bound by its operations: 2·B·N·D at 989 TFLOP/s (bf16) or 1,979 TOP/s
+(int8) against the distinct bytes at 3.35 TB/s (`chip_smoke.py` times it
+beside that bound).  Design: the source's note.
 
-The kernel gives each block a tile of queries and a split of the rows, and
-each block writes its split's list; `merge_splits` takes the lowest
-`rerank_k` of the S lists per query.  A launch keeps at most K_MAX per
-query; a larger `rerank_k` comes in pages of K_MAX (`paged_topk`), each
-launch bounded by the last (score, id) of the page before.  On the CPU the
-plain version runs.
+Two paths, chosen by shape in `block_plan` (never after an error):
+"wgmma" (`csrc/scan_topk_wgmma.cu`: warp-specialised, `wgmma` on the tensor
+cores, rows by TMA, 128 or 64 queries a block) wherever its block fits,
+"sync" (the `mma.sync` block) elsewhere; `scan_topk(..., path=)`
+forces one (ValueError where the shape cannot take it).  Each block
+writes its row split's list; `merge_splits` takes the lowest `rerank_k` of
+the S lists per query.  A launch keeps at most K_MAX per query; a larger
+`rerank_k` comes in pages of K_MAX (`paged_topk`), each launch bounded by
+the last (score, id) of the page before.  On the CPU the plain version
+runs.
 """
 
 from __future__ import annotations
@@ -46,17 +50,39 @@ K_MAX = 256
 _DTYPES = {torch.bfloat16: 0, torch.int8: 1}
 #: scan dtypes by the names `scan_topk.launches_by_dtype` counts under
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8"}
-#: csrc constants: warps per block, row bytes per ring stage and per mma
-#: k-step, the shared-memory stride of a staged row chunk, buffer entries
-#: per query, the deepest ring
+#: the kernel's paths (csrc/scan_topk.cu's note) and their C codes:
+#: "wgmma", the warp-specialised wgmma + TMA block, takes every shape it
+#: fits; "sync", the mma.sync block, the rest (2- and 1-byte row
+#: copies, rows so wide that a 64-query block's lists, query tile and ring
+#: pass shared memory)
+PATHS = {"sync": 0, "wgmma": 1}
+#: csrc constants of the sync path: warps per block, row bytes per ring
+#: stage and per mma k-step, the shared-memory stride of a staged row
+#: chunk, buffer entries per query, the deepest ring
 WARPS = 8
 CHUNK_BYTES = 128
 STEP_BYTES = 32
 ROW_STRIDE = CHUNK_BYTES + 16
 BUF = 32
 MAX_STAGES = 8
-#: queries per block the kernel is built for (largest first)
+#: queries per sync block the kernel is built for (largest first)
 QUERY_TILES = (128, 64, 32, 16)
+#: csrc constants of the wgmma path: queries per consumer warpgroup
+#: (wgmma's M), consumer warpgroups per block (two where they fit, else
+#: one), rows per tile (wgmma's N), bytes of one ring item (a tile's
+#: 128-byte chunk), the deepest ring, the buffer sizes built
+WG_QUERIES = 64
+WG_WARPGROUPS = (2, 1)
+WG_ROWS = 64
+WG_ITEM = WG_ROWS * CHUNK_BYTES
+WG_MAX_STAGES = 16
+WG_BUFS = (32, 16)
+#: slots of the wgmma block's side ring (a tile's bias and int8 scales)
+WG_SIDE_SLOTS = 6
+#: the wgmma plan keeps 32-entry buffers while its ring still holds this
+#: many tiles' items, else takes 16 (at the kNN table's block, half the
+#: merges beat a deeper ring: PERF.md §6)
+WG_RING_TILES = 2
 #: the plan adds row splits until the grid's last wave is this full, with
 #: at least MIN_SPLIT_TILES row tiles per split
 FILL = 0.85
@@ -174,26 +200,56 @@ def paged_topk(page, rerank_k: int):
 
 
 def row_tile(qt: int) -> int:
-    """Rows per tile of a qt-query block (csrc: a warp owns 16·MT queries x
-    32 rows, MT = 2 from 32 queries up, and 8 warps cover the tile)."""
+    """Rows per tile of a qt-query sync block (csrc: a warp owns 16·MT
+    queries x 32 rows, MT = 2 from 32 queries up, and 8 warps cover the
+    tile)."""
     mt = 2 if qt >= 32 else 1
     return 32 * (WARPS // (qt // (16 * mt)))
 
 
-def block_smem(qt: int, dp_bytes: int, kcap: int, stages: int) -> int:
-    """Dynamic shared memory of one block: the query tile (rows padded by 16
-    bytes), the ring, each query's list of kcap and buffer of BUF (score,
-    id) entries, its threshold (score, id) and count."""
+def sync_smem(qt: int, dp_bytes: int, kcap: int, stages: int) -> int:
+    """Dynamic shared memory of one sync block: the query tile (rows padded
+    by 16 bytes), the ring, each query's list of kcap and buffer of BUF
+    (score, id) entries, its threshold (score, id) and count."""
     return (qt * (dp_bytes + 16) + stages * row_tile(qt) * ROW_STRIDE
             + qt * (kcap + BUF) * 8 + qt * 12)
 
 
+def wgmma_smem(dp_bytes: int, kcap: int, stages: int, buf: int,
+               int8: bool, warpgroups: int) -> int:
+    """Dynamic shared memory of one wgmma block (csrc `layout`): the ring's
+    items of WG_ROWS x 128 bytes, each consumer warpgroup's query tile
+    (one item's size per 128-byte chunk of D), the side ring's slots of a
+    tile's bias (and int8 scales), a full and an empty barrier per item
+    and per side slot, each query's list of kcap and buffer of `buf`
+    entries, its buffer count."""
+    nchunks = -(-dp_bytes // CHUNK_BYTES)
+    side = WG_ROWS * 4 * (2 if int8 else 1)
+    return (stages * (WG_ITEM + 16) + WG_SIDE_SLOTS * (side + 16)
+            + warpgroups * nchunks * WG_ITEM
+            + warpgroups * WG_QUERIES * ((kcap + buf) * 8 + 4))
+
+
+def block_smem(path: str, qt: int, dp_bytes: int, kcap: int, stages: int,
+               buf: int = BUF, int8: bool = False) -> int:
+    """Dynamic shared memory of one block of `path` with `qt` queries."""
+    if path == "wgmma":
+        return wgmma_smem(dp_bytes, kcap, stages, buf, int8,
+                          qt // WG_QUERIES)
+    return sync_smem(qt, dp_bytes, kcap, stages)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
-    """A block of csrc/scan_topk.cu: `qt` queries x row tiles of `rt` rows
-    through a ring of `stages` stages, lists of `kcap` entries, queries and
-    rows zero-padded to `dp_bytes`, rows copied `vec` bytes at a time."""
+    """A block of `path` ("wgmma": csrc/scan_topk_wgmma.cu; "sync":
+    csrc/scan_topk.cu): `qt` queries (wgmma: 64 per consumer warpgroup) x
+    row tiles of `rt` rows through a ring of `stages` stages (wgmma: items
+    of rt rows x 128 bytes), lists of `kcap` entries and buffers of `buf`,
+    queries and rows zero-padded to `dp_bytes`, rows copied `vec` bytes at
+    a time where the producer copies them.  wgmma only: `producer` "tma"
+    or "cp.async"."""
 
+    path: str
     qt: int
     rt: int
     kcap: int
@@ -201,15 +257,18 @@ class BlockPlan:
     dp_bytes: int
     vec: int
     smem_bytes: int
+    buf: int = BUF
+    producer: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan(BlockPlan):
     """A BlockPlan and its grid: `splits` row splits of `split_rows` rows
-    cover N."""
+    cover N, `qtiles` query tiles cover B."""
 
-    split_rows: int
-    splits: int
+    split_rows: int = 0
+    splits: int = 1
+    qtiles: int = 1
 
 
 def _splits(qtiles: int, row_tiles: int, slots: int) -> int:
@@ -227,88 +286,143 @@ def _splits(qtiles: int, row_tiles: int, slots: int) -> int:
     return best
 
 
-@functools.lru_cache(maxsize=None)
-def block_plan(b: int, dim: int, itemsize: int, rerank_k: int,
-               align: int = 16) -> BlockPlan:
-    """`align`: the largest power of two up to 16 that divides the rows'
-    base address.  The row stream is bound by the bytes each SM keeps in
-    flight (its ring less the stage being read), and each staged byte
-    serves the block's queries: of the query tiles no wider than B needs,
-    the plan takes the one whose ring (as deep as shared memory allows, up
-    to MAX_STAGES) maximizes queries x bytes in flight, the larger tile on
-    a tie.  Rows are copied in the widest unit up to 16 bytes that divides
-    both the row width and `align`.  Raises ValueError for rerank_k > K_MAX
-    (one launch's most) or rows too wide for the smallest block."""
-    if not 1 <= rerank_k <= K_MAX:
-        raise ValueError(f"scan_topk: rerank_k={rerank_k} outside 1..{K_MAX}")
-    row_bytes = dim * itemsize
-    dp_bytes = -(-max(row_bytes, 1) // STEP_BYTES) * STEP_BYTES
-    kcap = max(32, 1 << (rerank_k - 1).bit_length())
-    vec = next(v for v in (16, 8, 4, 2, 1)
-               if row_bytes % v == 0 and align % v == 0)
+def _sync_block(b: int, dp_bytes: int, kcap: int, vec: int):
+    """The sync block (or None): of the query tiles no wider than B needs,
+    the one whose ring (as deep as shared memory allows, up to MAX_STAGES)
+    keeps the most queries x bytes in flight, the larger tile on a tie."""
     cap = max(16, 1 << (max(b, 1) - 1).bit_length())
     best = None
     for qt in QUERY_TILES:
         stage = row_tile(qt) * ROW_STRIDE
-        room = _lib.SMEM_LIMIT - block_smem(qt, dp_bytes, kcap, 0)
+        room = _lib.SMEM_LIMIT - sync_smem(qt, dp_bytes, kcap, 0)
         stages = min(MAX_STAGES, room // stage)
         if qt > cap or stages < 2:
             continue
         if best is None or qt * (stages - 1) * stage > best[0]:
             best = (qt * (stages - 1) * stage, qt, stages)
     if best is None:
-        raise ValueError(f"scan_topk: D={dim} x {itemsize} B rows with "
-                         f"rerank_k={rerank_k} fit no block in "
-                         f"{_lib.SMEM_LIMIT} bytes of shared memory")
+        return None
     _, qt, stages = best
-    return BlockPlan(qt, row_tile(qt), kcap, stages, dp_bytes, vec,
-                     block_smem(qt, dp_bytes, kcap, stages))
+    return BlockPlan("sync", qt, row_tile(qt), kcap, stages, dp_bytes, vec,
+                     sync_smem(qt, dp_bytes, kcap, stages))
+
+
+def _wgmma_stages(dp_bytes: int, kcap: int, buf: int, int8: bool,
+                  warpgroups: int) -> int:
+    room = _lib.SMEM_LIMIT - wgmma_smem(dp_bytes, kcap, 0, buf, int8,
+                                        warpgroups)
+    return min(WG_MAX_STAGES, room // (WG_ITEM + 16))
+
+
+def _wgmma_block(row_bytes: int, dp_bytes: int, kcap: int, vec: int,
+                 align: int, int8: bool):
+    """The wgmma block (or None if it does not fit or a row takes copies
+    under 4 bytes): two consumer warpgroups where their block fits, else
+    one.  The buffer: 32 entries where the ring still holds WG_RING_TILES
+    tiles' items, else 16 (the shared memory of the kNN table's lists).
+    The producer: TMA where the rows' stride and base are multiples of 16
+    bytes, else cp.async."""
+    if vec < 4:
+        return None
+    # a warpgroup holds a tile's items until its products are done
+    nchunks = -(-dp_bytes // CHUNK_BYTES)
+    for wgs in WG_WARPGROUPS:
+        fits = [(bf, _wgmma_stages(dp_bytes, kcap, bf, int8, wgs))
+                for bf in WG_BUFS]
+        fits = [(bf, st) for bf, st in fits if st >= max(2, nchunks)]
+        if fits:
+            break
+    else:
+        return None
+    deep = [f for f in fits if f[1] >= WG_RING_TILES * nchunks]
+    bf, stages = deep[0] if deep else max(fits, key=lambda f: f[1])
+    tma = row_bytes % 16 == 0 and align % 16 == 0
+    return BlockPlan("wgmma", wgs * WG_QUERIES, WG_ROWS, kcap, stages,
+                     dp_bytes, vec,
+                     wgmma_smem(dp_bytes, kcap, stages, bf, int8, wgs), bf,
+                     "tma" if tma else "cp.async")
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(b: int, dim: int, itemsize: int, rerank_k: int,
+               align: int = 16, path: str | None = None) -> BlockPlan:
+    """`align`: the largest power of two up to 16 that divides the rows'
+    base address.  The path by shape alone (PATHS): the wgmma block where
+    it fits (`_wgmma_block`), else the sync block (`_sync_block`); `path`
+    forces one (for timing) and raises ValueError where the shape cannot
+    take it.  Rows are copied in the widest
+    unit up to 16 bytes that divides both the row width and `align`.
+    Raises ValueError for rerank_k > K_MAX (one launch's most) or rows too
+    wide for either block."""
+    if not 1 <= rerank_k <= K_MAX:
+        raise ValueError(f"scan_topk: rerank_k={rerank_k} outside 1..{K_MAX}")
+    if path not in (None, *PATHS):
+        raise ValueError(f"scan_topk: unknown path {path!r}")
+    row_bytes = dim * itemsize
+    dp_bytes = -(-max(row_bytes, 1) // STEP_BYTES) * STEP_BYTES
+    kcap = max(32, 1 << (rerank_k - 1).bit_length())
+    vec = next(v for v in (16, 8, 4, 2, 1)
+               if row_bytes % v == 0 and align % v == 0)
+    blk = None
+    if path in (None, "wgmma"):
+        blk = _wgmma_block(row_bytes, dp_bytes, kcap, vec, align,
+                           itemsize == 1)
+    if blk is None and path in (None, "sync"):
+        blk = _sync_block(b, dp_bytes, kcap, vec)
+    if blk is None:
+        raise ValueError(f"scan_topk: D={dim} x {itemsize} B rows (aligned "
+                         f"to {align}) with rerank_k={rerank_k} fit no "
+                         f"{path or 'wgmma or sync'} block in "
+                         f"{_lib.SMEM_LIMIT} bytes of shared memory")
+    return blk
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(b: int, n: int, dim: int, itemsize: int, rerank_k: int,
-                align: int = 16, sm_count: int = 132,
-                per_sm: int = 1) -> LaunchPlan:
+                align: int = 16, sm_count: int = 132, per_sm: int = 1,
+                path: str | None = None) -> LaunchPlan:
     """`block_plan`'s block and a grid over N rows: row splits until the
     grid of `sm_count` SMs, each holding `per_sm` blocks of the plan
     (`occupancy`), fills its last wave (`_splits`)."""
-    blk = block_plan(b, dim, itemsize, rerank_k, align)
+    blk = block_plan(b, dim, itemsize, rerank_k, align, path)
     row_tiles = max(1, -(-n // blk.rt))
-    splits = _splits(-(-max(b, 1) // blk.qt), row_tiles,
-                     sm_count * max(1, per_sm))
+    qtiles = -(-max(b, 1) // blk.qt)
+    splits = _splits(qtiles, row_tiles, sm_count * max(1, per_sm))
     split_rows = -(-row_tiles // splits) * blk.rt
     return LaunchPlan(**dataclasses.asdict(blk), split_rows=split_rows,
-                      splits=max(1, -(-n // split_rows)))
+                      splits=max(1, -(-n // split_rows)), qtiles=qtiles)
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(device_index: int, dtype_code: int, qt: int, bound: bool,
-              smem_bytes: int) -> int:
-    """Blocks of the kernel's (dtype, qt, bound) instance with smem_bytes
-    of shared memory that one SM of the card holds at once
+def occupancy(device_index: int, path: str, dtype_code: int, qt: int,
+              bound: bool, buf: int, smem_bytes: int) -> int:
+    """Blocks of the kernel's (path, dtype, qt, bound, buf) instance with
+    smem_bytes of shared memory that one SM of the card holds at once
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
     import ctypes
 
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         _lib.check(_lib.library().ohnsw_scan_topk_occupancy(
-            dtype_code, qt, int(bound), smem_bytes, ctypes.byref(per_sm)),
-            "scan_topk occupancy")
+            PATHS[path], dtype_code, qt, int(bound), buf, smem_bytes,
+            ctypes.byref(per_sm)), "scan_topk occupancy")
     return per_sm.value
 
 
-def plan_for(scan, b: int, rerank_k: int, bound: bool = False) -> LaunchPlan:
+def plan_for(scan, b: int, rerank_k: int, bound: bool = False,
+             path: str | None = None) -> LaunchPlan:
     """The launch plan of `scan_topk` for B queries against the card
-    tensor `scan` (`bound`: a later page's launch), residency read from
-    the card."""
+    tensor `scan` (`bound`: a later page's launch; `path`: forced),
+    residency read from the card."""
     n_rows, dim = scan.shape
     itemsize, align = scan.element_size(), _alignment(scan.data_ptr())
-    blk = block_plan(b, dim, itemsize, rerank_k, align)
+    blk = block_plan(b, dim, itemsize, rerank_k, align, path)
     dev = scan.device
     return launch_plan(b, n_rows, dim, itemsize, rerank_k, align,
                        _sm_count(dev),
-                       occupancy(dev.index, _DTYPES[scan.dtype], blk.qt,
-                                 bound, blk.smem_bytes))
+                       occupancy(dev.index, blk.path, _DTYPES[scan.dtype],
+                                 blk.qt, bound, blk.buf, blk.smem_bytes),
+                       path)
 
 
 def _alignment(ptr: int) -> int:
@@ -323,21 +437,23 @@ def _launch(device, *args) -> int:
 
 
 def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
-              metric: str):
+              metric: str, path: str | None = None):
     """(scores f32[B, rerank_k], ids i64[B, rerank_k]) ascending: the lowest
     scan scores of q f32[B, D] against scan rows bf16 or int8 [N, D] (int8
     with f32 `scales[N]`), `norms` f32[N], tombstones `deleted` bool[N],
     the occupied count `n` (0-d int32).  The queries are prepared as the
     scan's operand here: rounded to bf16, or quantized per row to int8.
     An id is -1 (score +inf) only where fewer than rerank_k rows score
-    finite.
+    finite.  `path` ("wgmma" or "sync") forces the kernel's path, for
+    timing; it raises ValueError where the shape cannot take it.
 
     Routes:
       * l2, ip, cosine (KERNEL_METRICS): CPU tensors take the plain
         version; CUDA tensors launch the kernel (one launch per K_MAX of
         rerank_k, `paged_topk`) or raise (there is no fallback).
         `scan_topk.launches` counts these launches and nothing else,
-        `launches_by_dtype` the same by scan dtype ("bf16", "int8").
+        `launches_by_dtype` the same by scan dtype ("bf16", "int8"),
+        `launches_by_path` by path ("wgmma", "sync").
       * any other registered metric (its `matmul_score` is a Python
         callable the kernel cannot hold): the plain version on whatever
         device the tensors are on, counted in `scan_topk.plain_routes`."""
@@ -366,6 +482,8 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
             raise ValueError("scan_topk: tensors on different devices")
     if rerank_k < 1:
         raise ValueError(f"scan_topk: rerank_k={rerank_k} < 1")
+    if path not in (None, *PATHS):
+        raise ValueError(f"scan_topk: unknown path {path!r}")
     dev = scan.device
     scan, scales, norms = scan.contiguous(), scales.contiguous(), \
         norms.contiguous()
@@ -376,7 +494,7 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
     # the queries as the scan's operand, zero-padded to dp_bytes
     int8 = scan.dtype == torch.int8
     dp = block_plan(b, dim, scan.element_size(), min(rerank_k, K_MAX),
-                    _alignment(scan.data_ptr())).dp_bytes
+                    _alignment(scan.data_ptr()), path).dp_bytes
     qp = torch.zeros((b, dp // scan.element_size()), dtype=scan.dtype,
                      device=dev)
     if int8:
@@ -387,7 +505,7 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
         qs = scales  # not read
 
     def page(k, bound):
-        plan = plan_for(scan, b, k, bound is not None)
+        plan = plan_for(scan, b, k, bound is not None, path)
         out_s = torch.empty((b, plan.splits, k), dtype=torch.float32,
                             device=dev)
         out_i = torch.empty((b, plan.splits, k), dtype=torch.int32,
@@ -398,14 +516,16 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
             dev, scan.data_ptr(), _DTYPES[scan.dtype], scales.data_ptr(),
             norms.data_ptr(), deleted.data_ptr(), n.data_ptr(),
             qp.data_ptr(), qs.data_ptr(), lb_s, lb_i, out_s.data_ptr(),
-            out_i.data_ptr(), b, n_rows, dim * scan.element_size(),
-            plan.dp_bytes, k, plan.kcap, plan.qt, plan.split_rows,
+            out_i.data_ptr(),
+            b, n_rows, dim * scan.element_size(), plan.dp_bytes, k,
+            plan.kcap, PATHS[plan.path], plan.qt, plan.buf, plan.split_rows,
             plan.splits, KERNEL_METRICS[metric],
             int(not get_metric(metric).needs_norms), plan.vec, plan.stages,
-            plan.smem_bytes)
+            int(plan.producer == "tma"), plan.smem_bytes)
         _lib.check(status, "scan_topk")
         scan_topk.launches += 1
         scan_topk.launches_by_dtype[DTYPE_NAMES[scan.dtype]] += 1
+        scan_topk.launches_by_path[plan.path] += 1
         return merge_splits(out_s, out_i, k)
 
     return paged_topk(page, rerank_k)
@@ -413,5 +533,6 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
 
 scan_topk.launches = 0  # kernel launches (not counting plain-version calls)
 scan_topk.launches_by_dtype = dict.fromkeys(DTYPE_NAMES.values(), 0)
+scan_topk.launches_by_path = dict.fromkeys(PATHS, 0)
 scan_topk.plain_routes = 0  # calls routed to the plain version by metric
 #                             (module docstring; never the CPU)

@@ -25,7 +25,7 @@ from ocaml_hnsw_tpu.oracle.bruteforce import bruteforce_knn, recall
 
 from ocaml_hnsw_tpu_torch.bench import __main__ as cli
 from ocaml_hnsw_tpu_torch.bench import (
-    datasets, harness, k1_timeline, kernel_race,
+    datasets, harness, k1_timeline, k3_timeline, kernel_race,
 )
 from ocaml_hnsw_tpu_torch.models.flat import flat_search
 
@@ -193,6 +193,43 @@ def test_k1_timeline_stamps_fit_the_kernel():
     with pytest.raises(ValueError, match="does not fit"):
         k1_timeline.apply_patch(src.replace("mbar_wait(&ring", "wait(&r"),
                                 patch)
+
+
+def test_k3_timeline_stamps_fit_the_kernel():
+    """k3_timeline.py's counters go into the shipped wgmma kernel's source,
+    each edit where it names, the source otherwise untouched; an edit that
+    no longer fits raises."""
+    src = (k3_timeline.HERE.parent / "csrc" / "scan_topk_wgmma.cu"
+           ).read_text()
+    out = k3_timeline.stamped(src)
+    assert out.count("clock64()") == 16 and "ohnsw_k3_timeline" in out
+    for _, new in k3_timeline.STAMPS:
+        assert new in out  # every edit in, none undone by a later one
+    with pytest.raises(ValueError, match="does not fit"):
+        k3_timeline.stamped(src.replace("epilogue(acc, bias, rsc, t);",
+                                        "epilogue(acc, bias, rsc);"))
+
+
+def test_k3_timeline_summarize():
+    """Two blocks on two SMs: the offsets (µs), warp 0's cycles by part
+    (millions, `other` the loop's cycles outside the named parts) and the
+    counts the report reads from their rows."""
+    import numpy as np
+
+    f = k3_timeline.FIELDS
+    rows = np.zeros((2, k3_timeline.SLOTS), np.int64)
+    for b, (t0, sm) in enumerate(((1_000, 3), (3_000, 9))):
+        rows[b, [f["start"], f["smid"]]] = (t0, sm)
+        rows[b, f["producer_end"]] = t0 + 40_000
+        rows[b, f["wg0_end"]] = rows[b, f["wg1_end"]] = t0 + 50_000
+        rows[b, [f["full_wait"], f["wgmma_wait"], f["release"],
+                 f["epilogue"], f["loop"]]] = (1e6, 2e6, 3e6, 4e6, 12e6)
+        rows[b, [f["tiles"], f["slow_entries"], f["merges"]]] = (70, 30, 5)
+    s = k3_timeline.summarize(rows)
+    assert s["start_us"] == [0.0, 1.0, 2.0] and s["sms"] == 2
+    assert s["wg0_end_us"] == [50.0, 51.0, 52.0]
+    assert s["other_Mcycles"] == [2.0, 2.0, 2.0]
+    assert (s["tiles"], s["merges"]) == ([70.0] * 3, [5.0] * 3)
 
 
 def test_k1_timeline_summarize():

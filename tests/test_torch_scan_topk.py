@@ -253,30 +253,43 @@ class TestLaunchPlan:
 
     def test_main_path_shapes(self):
         # the kNN table's 8192-row block: k = 64 + 1 + 32 = 97 -> lists of
-        # 128; 64-query tiles with a 7-stage ring keep the most queries x
-        # bytes in flight; 128 tiles fill a wave of 132 SMs
+        # 128.  The wgmma block: two consumer warpgroups of 64 queries,
+        # 64-row tiles, 32-entry buffers with the 4 ring items left (2
+        # tiles of 2 chunks), rows by TMA, each fetch for 128 queries; 64
+        # query tiles x 2 splits fill a wave of 132 SMs
         p = k3.launch_plan(8192, self.MAIN_ROWS, 128, 2, 97)
-        assert (p.qt, p.rt, p.kcap, p.stages, p.dp_bytes, p.vec) == (
-            64, 128, 128, 7, 256, 16)
-        assert p.splits == 1 and p.split_rows >= self.MAIN_ROWS
-        # the flat batch: 128-query tiles (a tie with 64 at the deepest
-        # ring goes to the larger tile), two splits
+        assert (p.path, p.qt, p.rt, p.kcap, p.stages, p.dp_bytes, p.vec,
+                p.buf, p.producer) == (
+            "wgmma", 128, 64, 128, 4, 256, 16, 32, "tma")
+        assert (p.qtiles, p.splits) == (64, 2)
+        assert p.split_rows * p.splits >= self.MAIN_ROWS
+        # the flat batch: lists of 32 leave room for the deepest ring
         p = k3.launch_plan(8192, self.MAIN_ROWS, 128, 2, 32)
-        assert (p.qt, p.rt, p.kcap, p.stages, p.splits) == (
-            128, 64, 32, k3.MAX_STAGES, 2)
+        assert (p.path, p.qt, p.rt, p.kcap, p.stages, p.buf, p.producer,
+                p.splits) == ("wgmma", 128, 64, 32, 16, 32, "tma", 2)
+        # G1's int8 kNN block: one 128-byte chunk a row, 5 items
+        p = k3.launch_plan(8192, self.MAIN_ROWS, 128, 1, 97)
+        assert (p.path, p.stages, p.buf, p.dp_bytes, p.producer) == (
+            "wgmma", 5, 32, 128, "tma")
 
-    @pytest.mark.parametrize("dim,itemsize,align,dp,vec", [
-        (100, 2, 16, 224, 8),    # glove: 200-byte rows, not 16-aligned
-        (96, 1, 16, 96, 16),     # deep10m int8
-        (100, 1, 16, 128, 4),
-        (101, 2, 16, 224, 2),    # 2-byte units, plain loads
-        (99, 1, 16, 128, 1),
-        (128, 2, 8, 256, 8),     # a base 8 bytes off 16
-        (768, 2, 16, 1536, 16),
+    @pytest.mark.parametrize("dim,itemsize,align,dp,vec,path,producer,qt", [
+        (100, 2, 16, 224, 8, "wgmma", "cp.async", 128),  # glove: 200 B rows
+        (96, 1, 16, 96, 16, "wgmma", "tma", 128),        # deep10m int8
+        (100, 1, 16, 128, 4, "wgmma", "cp.async", 128),
+        (101, 2, 16, 224, 2, "sync", "", 128),           # 2-byte units
+        (99, 1, 16, 128, 1, "sync", "", 128),
+        (128, 2, 8, 256, 8, "wgmma", "cp.async", 128),   # base 8 B off 16
+        (128, 2, 16, 256, 16, "wgmma", "tma", 128),
+        # two warpgroups' query tiles of 1536 bytes a row pass shared
+        # memory: one warpgroup; at 2048 bytes a row, even one's does
+        (768, 2, 16, 1536, 16, "wgmma", "tma", 64),
+        (1024, 2, 16, 2048, 16, "sync", "", 32),
     ])
-    def test_padding_and_copy_unit(self, dim, itemsize, align, dp, vec):
+    def test_padding_and_copy_unit(self, dim, itemsize, align, dp, vec, path,
+                                   producer, qt):
         p = k3.launch_plan(1024, 100_000, dim, itemsize, 32, align)
-        assert (p.dp_bytes, p.vec) == (dp, vec)
+        assert (p.dp_bytes, p.vec, p.path, p.producer, p.qt) == (
+            dp, vec, path, producer, qt)
         assert p.dp_bytes % k3.STEP_BYTES == 0
 
     @pytest.mark.parametrize("b", [1, 40, 300, 1024, 8192])
@@ -286,25 +299,45 @@ class TestLaunchPlan:
     def test_blocks_fit_and_cover(self, b, rk, dim, itemsize):
         n = 1_183_514
         p = k3.launch_plan(b, n, dim, itemsize, rk)
-        assert p.smem_bytes == k3.block_smem(p.qt, p.dp_bytes, p.kcap,
-                                             p.stages)
+        assert p.smem_bytes == k3.block_smem(p.path, p.qt, p.dp_bytes,
+                                             p.kcap, p.stages, p.buf,
+                                             itemsize == 1)
         assert p.smem_bytes <= _lib.SMEM_LIMIT == 232448
         assert p.kcap >= max(32, rk) and p.kcap & (p.kcap - 1) == 0
-        assert p.qt in k3.QUERY_TILES and p.rt == k3.row_tile(p.qt)
-        assert 2 <= p.stages <= k3.MAX_STAGES
-        assert p.qt <= max(16, 1 << (b - 1).bit_length())  # no idle tile
+        nchunks = -(-p.dp_bytes // k3.CHUNK_BYTES)
+        if p.path == "wgmma":
+            wgs = p.qt // k3.WG_QUERIES
+            assert wgs in k3.WG_WARPGROUPS and p.rt == k3.WG_ROWS
+            assert 2 <= p.stages <= k3.WG_MAX_STAGES and p.buf in k3.WG_BUFS
+            # a warpgroup holds a whole tile's items (one per 128-byte
+            # chunk of D) until its products are done
+            assert p.stages >= nchunks
+            # one consumer warpgroup only where two do not fit
+            assert wgs == 2 or all(
+                k3._wgmma_stages(p.dp_bytes, p.kcap, bf, itemsize == 1, 2)
+                < max(2, nchunks) for bf in k3.WG_BUFS)
+        else:
+            assert p.qt in k3.QUERY_TILES and p.rt == k3.row_tile(p.qt)
+            assert 2 <= p.stages <= k3.MAX_STAGES and p.buf == k3.BUF
+            assert p.qt <= max(16, 1 << (b - 1).bit_length())  # no idle tile
+            # the sync block only where no wgmma block of one warpgroup
+            # fits
+            assert all(k3._wgmma_stages(p.dp_bytes, p.kcap, bf,
+                                        itemsize == 1, 1) < max(2, nchunks)
+                       for bf in k3.WG_BUFS)
+        assert p.qtiles * p.qt >= b > (p.qtiles - 1) * p.qt
         assert p.split_rows % p.rt == 0
         assert (p.splits - 1) * p.split_rows < n <= p.splits * p.split_rows
 
     def test_splits_fill_the_card(self):
-        # 1024 queries in 64-query tiles: 16 tiles, 8 splits = 128 blocks
+        # 1024 queries in 128-query blocks: 8 tiles x 14 splits fill 132
         p = k3.launch_plan(1024, self.MAIN_ROWS, 128, 2, 97, sm_count=132)
-        blocks = -(-1024 // p.qt) * p.splits
+        blocks = p.qtiles * p.splits
         assert blocks / (-(-blocks // 132) * 132) >= k3.FILL
         # one query: its splits alone nearly fill the card (the plan picks
         # S for a full wave; whole row tiles per split round S down a bit)
         p = k3.launch_plan(1, self.MAIN_ROWS, 128, 2, 32, sm_count=132)
-        assert p.qt == 16 and 0.8 * 132 <= p.splits <= 132
+        assert p.qtiles == 1 and 0.8 * 132 <= p.splits <= 132
         # two resident blocks per SM: a wave of 264 blocks to fill
         p = k3.launch_plan(8192, self.MAIN_ROWS, 128, 2, 32, sm_count=132,
                            per_sm=2)
@@ -315,6 +348,41 @@ class TestLaunchPlan:
             k3.launch_plan(64, 4096, 128, 2, k3.K_MAX + 1)
         with pytest.raises(ValueError, match="shared memory"):
             k3.launch_plan(64, 4096, 8192, 2, 256)
+
+    @pytest.mark.parametrize("path,dim,itemsize,rk", [
+        ("wgmma", 101, 2, 32),   # 2-byte copies: sync only
+        ("wgmma", 768, 2, 256),  # lists and rows past shared memory
+        ("wgmma", 1024, 2, 32),  # one warpgroup's query tile and ring too
+        ("sync", 8192, 2, 256),
+        ("mma", 128, 2, 32),     # no such path
+    ])
+    def test_forcing_a_path_the_shape_cannot_take_raises(self, path, dim,
+                                                         itemsize, rk):
+        with pytest.raises(ValueError, match="path|shared memory"):
+            k3.launch_plan(1024, 100_000, dim, itemsize, rk, path=path)
+
+    def test_forced_paths_plan_both_where_both_fit(self):
+        for path in k3.PATHS:
+            p = k3.launch_plan(8192, self.MAIN_ROWS, 128, 2, 97, path=path)
+            assert p.path == path
+        assert k3.launch_plan(8192, self.MAIN_ROWS, 128, 2, 97,
+                              path="sync").qt == 64
+
+    @pytest.mark.parametrize("dim,itemsize", [(96, 1), (100, 2), (128, 2)])
+    def test_lists_of_256_take_one_warpgroup(self, dim, itemsize):
+        # kcap 256 (rerank_k 129..256, and each full page of a larger
+        # rerank_k): two warpgroups' lists (128 x 288 entries of 8 bytes)
+        # pass shared memory, one warpgroup's 64 fit with 8 ring items
+        for rk in (129, k3.K_MAX):
+            p = k3.launch_plan(8192, self.MAIN_ROWS, dim, itemsize, rk)
+            assert (p.path, p.qt, p.kcap, p.stages, p.buf) == (
+                "wgmma", 64, 256, 8, 32)
+            assert p.smem_bytes == k3.wgmma_smem(p.dp_bytes, 256, 8, 32,
+                                                 itemsize == 1, 1)
+        # a rerank_k of 300: a full page of 256, then one of 44 (kcap 64)
+        # on the two-warpgroup block
+        p = k3.launch_plan(8192, self.MAIN_ROWS, dim, itemsize, 300 - 256)
+        assert (p.path, p.qt, p.kcap) == ("wgmma", 128, 64)
 
 
 class _OnCard(torch.Tensor):
@@ -329,11 +397,12 @@ class _OnCard(torch.Tensor):
 @pytest.fixture
 def counters():
     before = (k3.scan_topk.launches, dict(k3.scan_topk.launches_by_dtype),
-              k3.scan_topk.plain_routes)
+              k3.scan_topk.plain_routes, dict(k3.scan_topk.launches_by_path))
     yield
     k3.scan_topk.launches = before[0]
     k3.scan_topk.launches_by_dtype.update(before[1])
     k3.scan_topk.plain_routes = before[2]
+    k3.scan_topk.launches_by_path.update(before[3])
 
 
 class TestRoutes:
@@ -396,6 +465,7 @@ class TestRoutes:
         monkeypatch.setattr(k3, "scan_topk_plain", refuse)
         scan = torch.Tensor._make_subclass(_OnCard, t.scan)
         before = dict(k3.scan_topk.launches_by_dtype)
+        paths_before = dict(k3.scan_topk.launches_by_path)
         n_before = k3.scan_topk.launches
         s, i = k3.scan_topk(scan, t.scales, t.norms, t.deleted, t.n,
                             torch.from_numpy(q), 32, "cosine")
@@ -405,11 +475,20 @@ class TestRoutes:
         assert len(args) + 1 == len(_lib._SIGNATURES["ohnsw_scan_topk"])
         plan = k3.launch_plan(B, CAP, 100, scan.element_size(), 32,
                               k3._alignment(scan.data_ptr()), 132)
+        # the flat's own norms, tombstones and n: the kernel masks rows
+        assert args[3:6] == (t.norms.data_ptr(), t.deleted.data_ptr(),
+                             t.n.data_ptr())
         assert args[8:10] == (None, None)  # no page bound
         assert args[12:] == (B, CAP, 100 * scan.element_size(),
-                             plan.dp_bytes, 32, plan.kcap, plan.qt,
+                             plan.dp_bytes, 32, plan.kcap,
+                             k3.PATHS[plan.path], plan.qt, plan.buf,
                              plan.split_rows, plan.splits, 0, 1, plan.vec,
-                             plan.stages, plan.smem_bytes)
+                             plan.stages, int(plan.producer == "tma"),
+                             plan.smem_bytes)
+        # 200- and 100-byte rows: the wgmma block, its producer by cp.async
+        assert (plan.path, plan.producer) == ("wgmma", "cp.async")
+        assert k3.scan_topk.launches_by_path == dict(
+            paths_before, wgmma=paths_before["wgmma"] + 1)
         assert k3.scan_topk.launches == n_before + 1
         before[dtype] += 1
         assert k3.scan_topk.launches_by_dtype == before
@@ -429,7 +508,7 @@ class TestRoutes:
 
         def launch(device, *args):
             lb_s, lb_i, out_s, out_i = args[8:12]
-            b, k, split_rows, splits = args[12], args[16], args[19], args[20]
+            b, k, split_rows, splits = args[12], args[16], args[21], args[22]
             bound = None if lb_s is None else (
                 np.ctypeslib.as_array((ctypes.c_float * b).from_address(lb_s)),
                 np.ctypeslib.as_array((ctypes.c_int32 * b).from_address(lb_i)))
@@ -466,6 +545,23 @@ class TestRoutes:
                 for b in range(B)]
         np.testing.assert_array_equal(s.numpy(), [w for w, _ in want])
         np.testing.assert_array_equal(i.numpy(), [w for _, w in want])
+
+    def test_a_forced_path_the_shape_cannot_take_raises(self, monkeypatch,
+                                                         counters):
+        x, q, dead = _data(23, 101, "l2")
+        t = _port_flat(x, 101, "bf16", dead)
+        launched = []
+        monkeypatch.setattr(k3, "_launch", lambda *a: launched.append(a))
+        monkeypatch.setattr(k3, "_sm_count", lambda device: 132)
+        monkeypatch.setattr(k3, "occupancy", lambda *a: 1)
+        scan = torch.Tensor._make_subclass(_OnCard, t.scan)
+        with pytest.raises(ValueError, match="wgmma"):
+            k3.scan_topk(scan, t.scales, t.norms, t.deleted, t.n,
+                         torch.from_numpy(q), 32, "l2", path="wgmma")
+        with pytest.raises(ValueError, match="unknown path"):
+            k3.scan_topk(scan, t.scales, t.norms, t.deleted, t.n,
+                         torch.from_numpy(q), 32, "l2", path="hmma")
+        assert not launched
 
     def test_card_tensors_are_checked(self, flat, monkeypatch):
         t, q = flat
