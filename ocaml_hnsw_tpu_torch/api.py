@@ -30,6 +30,7 @@ from ocaml_hnsw_tpu_torch.config import HnswConfig
 from ocaml_hnsw_tpu_torch.models.build import BuildState
 from ocaml_hnsw_tpu_torch.models.graph import GraphTensors, grow_graph
 from ocaml_hnsw_tpu_torch.models.search import knn_search
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 from ocaml_hnsw_tpu_torch import io as index_io
 
 
@@ -49,6 +50,40 @@ def _pad_batch(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _answers(ids, dists, q_n: int, labels):
+    """The first q_n rows of a search's device ids and distances on the
+    host, ids mapped through `labels`: (labels i64, dists f32), -1 where
+    the id is -1."""
+    with annotate("hnsw.api.fetch"):  # waits for the device, then the D2H
+        ids = ids.cpu().numpy()[:q_n]
+        dists = dists.cpu().numpy()[:q_n]
+    with annotate("hnsw.api.labels"):
+        out = np.where(ids >= 0, labels[np.maximum(ids, 0)], -1)
+        return out.astype(np.int64), dists
+
+
+def _add_labelled(index, ids, n_cur: int, n_new: int, add) -> None:
+    """Run `add()`, which stores n_new rows at ids n_cur.., under their
+    labels (`ids`, or n_cur.. when None): checked against `index`'s before
+    the add, recorded in its `_label_to_id` and `_labels` after it."""
+    with annotate("hnsw.api.labels"):
+        if ids is None:
+            labels = np.arange(n_cur, n_cur + n_new, dtype=np.int64)
+        else:
+            labels = np.asarray(ids, dtype=np.int64).reshape(-1)
+            if labels.shape[0] != n_new:
+                raise ValueError("ids length must match data rows")
+        clash = [int(l) for l in labels if int(l) in index._label_to_id]
+        if clash:
+            raise ValueError(f"duplicate labels not supported: {clash[:5]}")
+    with annotate("hnsw.api.add"):
+        add()
+    with annotate("hnsw.api.labels"):
+        for off, lab in enumerate(labels):
+            index._label_to_id[int(lab)] = n_cur + off
+        index._labels = np.concatenate([index._labels, labels])
 
 
 def _resolve_device(device) -> torch.device:
@@ -130,31 +165,21 @@ class Index:
     # ------------------------------------------------------------- mutation
     def add_items(self, data, ids=None, **_ignored) -> None:
         st = self._require_init()
-        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
-        if data.shape[1] != self.dim:
-            raise ValueError(f"expected dim {self.dim}, got {data.shape[1]}")
-        n_new = data.shape[0]
-        n_cur = st.host_n
-        if n_cur + n_new > st.max_elements:
-            raise RuntimeError(
-                f"index is full: {n_cur} + {n_new} > max_elements "
-                f"{st.max_elements}"
-            )
-        if ids is None:
-            labels = np.arange(n_cur, n_cur + n_new, dtype=np.int64)
-        else:
-            labels = np.asarray(ids, dtype=np.int64).reshape(-1)
-            if labels.shape[0] != n_new:
-                raise ValueError("ids length must match data rows")
-        clash = [int(l) for l in labels if int(l) in self._label_to_id]
-        if clash:
-            raise ValueError(f"duplicate labels not supported: {clash[:5]}")
-        st.add(data)
+        with annotate("hnsw.api.prepare"):
+            data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+            if data.shape[1] != self.dim:
+                raise ValueError(
+                    f"expected dim {self.dim}, got {data.shape[1]}")
+            n_new = data.shape[0]
+            n_cur = st.host_n
+            if n_cur + n_new > st.max_elements:
+                raise RuntimeError(
+                    f"index is full: {n_cur} + {n_new} > max_elements "
+                    f"{st.max_elements}"
+                )
+        _add_labelled(self, ids, n_cur, n_new, lambda: st.add(data))
         self._seeds = None  # upper-layer membership changed
         self._packed = None  # adjacency changed
-        for off, lab in enumerate(labels):
-            self._label_to_id[int(lab)] = n_cur + off
-        self._labels = np.concatenate([self._labels, labels])
 
     def mark_deleted(self, label: int) -> None:
         """Tombstone (in place): traversed, never returned."""
@@ -201,7 +226,8 @@ class Index:
         if self._seeds is None:
             from ocaml_hnsw_tpu_torch.models.search import build_seed_index
 
-            self._seeds = build_seed_index(st.graph, self.space)
+            with annotate("hnsw.api.seed_index"):
+                self._seeds = build_seed_index(st.graph, self.space)
         return self._seeds
 
     def _packed_index(self):
@@ -220,7 +246,8 @@ class Index:
         if st.graph.n_cap * deg * pack_d_pad(self.dim) > self.PACKED_BUDGET_BYTES:
             return None
         if self._packed is None:
-            self._packed = pack_graph(st.graph, self.space)
+            with annotate("hnsw.api.pack"):
+                self._packed = pack_graph(st.graph, self.space)
         return self._packed
 
     def knn_query(self, data, k: int = 1, ef: int | None = None,
@@ -247,12 +274,13 @@ class Index:
             raise RuntimeError("index is empty")
         if engine not in ("auto", "classic", "packed"):
             raise ValueError(f"engine must be auto|classic|packed, got {engine!r}")
-        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
-        q_n = data.shape[0]
-        b = _pad_batch(q_n)
-        padded = np.zeros((b, self.dim), np.float32)
-        padded[:q_n] = data
-        queries = torch.from_numpy(padded).to(self.device)
+        with annotate("hnsw.api.prepare"):
+            data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+            q_n = data.shape[0]
+            b = _pad_batch(q_n)
+            padded = np.zeros((b, self.dim), np.float32)
+            padded[:q_n] = data
+            queries = torch.from_numpy(padded).to(self.device)
         ef = max(ef if ef is not None else self.ef, k)
         seeds = self._seed_index()
         packed = self._packed_index() if engine in ("auto", "packed") else None
@@ -280,10 +308,7 @@ class Index:
                 st.graph, queries, k=k, ef=ef, metric=self.space,
                 max_iters=max_iters, seeds=seeds, compact_k=compact_k,
             )
-        ids = ids.cpu().numpy()[:q_n]
-        dists = dists.cpu().numpy()[:q_n]
-        labels = np.where(ids >= 0, self._labels[np.maximum(ids, 0)], -1)
-        return labels.astype(np.int64), dists
+        return _answers(ids, dists, q_n, self._labels)
 
     # ------------------------------------------------------------ inspection
     def get_current_count(self) -> int:
@@ -391,32 +416,28 @@ class FlatIndex:
         from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 
         flat = self._require_init()
-        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
-        if data.shape[1] != self.dim:
-            raise ValueError(f"expected dim {self.dim}, got {data.shape[1]}")
-        if get_metric(self.space).normalize_add:
-            nrm = np.linalg.norm(data, axis=1, keepdims=True)
-            data = data / np.where(nrm == 0, 1.0, nrm)
-        n_new = data.shape[0]
-        n_cur = int(flat.n)
-        if n_cur + n_new > self.max_elements:
-            raise RuntimeError("index is full; grow max_elements")
-        if ids is None:
-            labels = np.arange(n_cur, n_cur + n_new, dtype=np.int64)
-        else:
-            labels = np.asarray(ids, dtype=np.int64).reshape(-1)
-            if labels.shape[0] != n_new:
-                raise ValueError("ids length must match data rows")
-        clash = [int(l) for l in labels if int(l) in self._label_to_id]
-        if clash:
-            raise ValueError(f"duplicate labels not supported: {clash[:5]}")
-        chunk = 65536  # bounds the f32 copy on the device
-        for done in range(0, n_new, chunk):
-            rows = torch.from_numpy(data[done:done + chunk]).to(self.device)
-            flat_add(flat, rows, n_cur + done, rows.shape[0])
-        for off, lab in enumerate(labels):
-            self._label_to_id[int(lab)] = n_cur + off
-        self._labels = np.concatenate([self._labels, labels])
+        with annotate("hnsw.sync.flat_n"):
+            n_cur = int(flat.n)
+        with annotate("hnsw.api.prepare"):
+            data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+            if data.shape[1] != self.dim:
+                raise ValueError(
+                    f"expected dim {self.dim}, got {data.shape[1]}")
+            if get_metric(self.space).normalize_add:
+                nrm = np.linalg.norm(data, axis=1, keepdims=True)
+                data = data / np.where(nrm == 0, 1.0, nrm)
+            n_new = data.shape[0]
+            if n_cur + n_new > self.max_elements:
+                raise RuntimeError("index is full; grow max_elements")
+
+        def add():
+            chunk = 65536  # bounds the f32 copy on the device
+            for done in range(0, n_new, chunk):
+                rows = torch.from_numpy(data[done:done + chunk])
+                rows = rows.to(self.device)
+                flat_add(flat, rows, n_cur + done, rows.shape[0])
+
+        _add_labelled(self, ids, n_cur, n_new, add)
 
     def resize_index(self, new_max_elements: int) -> None:
         """Grow capacity (tensors re-padded; norms pad to +inf so empty
@@ -449,22 +470,22 @@ class FlatIndex:
         from ocaml_hnsw_tpu_torch.models.flat import flat_search
 
         flat = self._require_init()
-        if int(flat.n) == 0:
+        with annotate("hnsw.sync.flat_n"):
+            empty = int(flat.n) == 0
+        if empty:
             raise RuntimeError("index is empty")
-        data = np.atleast_2d(np.asarray(data, dtype=np.float32))
-        q_n = data.shape[0]
-        padded = np.zeros((_pad_batch(q_n), self.dim), np.float32)
-        padded[:q_n] = data
+        with annotate("hnsw.api.prepare"):
+            data = np.atleast_2d(np.asarray(data, dtype=np.float32))
+            q_n = data.shape[0]
+            padded = np.zeros((_pad_batch(q_n), self.dim), np.float32)
+            padded[:q_n] = data
+            queries = torch.from_numpy(padded).to(self.device)
         ids, dists = flat_search(
-            flat, torch.from_numpy(padded).to(self.device), k=k,
-            metric=self.space,
+            flat, queries, k=k, metric=self.space,
             rerank_k=max(k, rerank_k if rerank_k is not None else self.rerank_k),
             exact=self.exact,
         )
-        ids = ids.cpu().numpy()[:q_n]
-        dists = dists.cpu().numpy()[:q_n]
-        labels = np.where(ids >= 0, self._labels[np.maximum(ids, 0)], -1)
-        return labels.astype(np.int64), dists
+        return _answers(ids, dists, q_n, self._labels)
 
     def mark_deleted(self, label: int) -> None:
         self._require_init().deleted[self._label_to_id[int(label)]] = True

@@ -52,6 +52,7 @@ from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 from ocaml_hnsw_tpu_torch.ops.sortmerge import bitonic_sort, next_pow2
 from ocaml_hnsw_tpu_torch.utils import round_up
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
 
 def upper_round_width(r: int, m: int, level: int) -> int:
@@ -782,13 +783,16 @@ class BuildState:
         self.packed = None
         self._packed_build = None
         self._pack_covered = None
-        n = int(graph.n)
-        lv = graph.levels[:n].cpu().numpy()
+        with annotate("hnsw.sync.adopt_n"):
+            n = int(graph.n)
+        with annotate("hnsw.sync.adopt_levels"):
+            lv = graph.levels[:n].cpu().numpy()
         self.host_n = n
         self.host_max_level = int(lv.max()) if n else -1
         upper = np.nonzero(lv >= 1)[0]
         self.host_upper_count = int(upper.size)
-        self.host_up_n = int(graph.up_n)
+        with annotate("hnsw.sync.adopt_up_n"):
+            self.host_up_n = int(graph.up_n)
         cap = self.bank.ids.shape[0]
         self.bank = SeedBank.empty(cap, self.config.dim, self.device)
         if upper.size:

@@ -18,6 +18,7 @@ sizes bound the transient memory of each pass; they do not change results.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
@@ -39,6 +40,7 @@ from ocaml_hnsw_tpu_torch.ops.distance import (
 )
 from ocaml_hnsw_tpu_torch.ops.sortmerge import bitonic_sort, next_pow2
 from ocaml_hnsw_tpu_torch.utils import round_up
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -291,7 +293,10 @@ def bulk_build(
     reranked in exact f32 (K2) as the bf16 scan's are.  `batch` is the
     queries per kNN-table batch (the JAX package's 8192; it does not change
     results).  Stage times go to this module's logger at INFO, and
-    are printed with verbose=True (timed with a device sync only then)."""
+    are printed with verbose=True (timed with a device sync only then).
+    Each stage also runs in an `hnsw.bulk.*` span (`utils/profiling.py::
+    annotate`), closed before the stage's sync (a level of one node has
+    none: it only clears its row)."""
     from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
     from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows
 
@@ -300,75 +305,83 @@ def bulk_build(
 
     from ocaml_hnsw_tpu_torch.api import _resolve_device
 
-    if isinstance(data, torch.Tensor):
-        dev = _resolve_device(device if device is not None else data.device)
-        data = data.to(dev)
-    else:
-        dev = _resolve_device(device if device is not None else "cuda")
-        data = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-
     def report(msg: str) -> None:
         log.info(msg)
         if verbose:
             print(msg, flush=True)
 
-    def stage(msg):
+    @contextlib.contextmanager
+    def stage(span: str, msg: str):
+        """One stage: its span, closed before the sync and line that
+        follow it when timed."""
         nonlocal t0
+        with annotate(span):
+            yield
         if timed:
             _sync(dev)
             now = time.perf_counter()
             report(f"bulk {msg}: {now - t0:.3f} s")
             t0 = now
 
-    n, dim = int(data.shape[0]), int(data.shape[1])
-    if dim != config.dim:
-        raise ValueError(f"expected dim {config.dim}, got {dim}")
-    max_elements = max_elements or n
-    n_cap = capacity(max_elements)
-    l_max = config.derived_max_level(max_elements)
-    m, m_max, m_max0 = config.M, config.M, config.M_max0
-    metric = config.metric
-    keep_pruned = config.keep_pruned_connections
+    with annotate("hnsw.bulk.prepare"):
+        if isinstance(data, torch.Tensor):
+            dev = _resolve_device(device if device is not None
+                                  else data.device)
+            data = data.to(dev)
+        else:
+            dev = _resolve_device(device if device is not None else "cuda")
+            data = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+        n, dim = int(data.shape[0]), int(data.shape[1])
+        if dim != config.dim:
+            raise ValueError(f"expected dim {config.dim}, got {dim}")
+        max_elements = max_elements or n
+        n_cap = capacity(max_elements)
+        l_max = config.derived_max_level(max_elements)
+        m, m_max, m_max0 = config.M, config.M, config.M_max0
+        metric = config.metric
+        keep_pruned = config.keep_pruned_connections
 
-    # ---- levels: same formula/stream as the incremental builder
-    if levels is None:
-        rng = np.random.RandomState(config.seed)
-        levels = sample_levels(rng, n, config.mL, l_max)
-    levels_np = np.asarray(levels)
-    if levels_np.shape != (n,):
-        raise ValueError(f"levels must have shape ({n},)")
-    max_level = int(levels_np.max(initial=0))
-    entry = int(np.argmax(levels_np))  # lowest id at the top level
+        # ---- levels: same formula/stream as the incremental builder
+        if levels is None:
+            rng = np.random.RandomState(config.seed)
+            levels = sample_levels(rng, n, config.mL, l_max)
+        levels_np = np.asarray(levels)
+        if levels_np.shape != (n,):
+            raise ValueError(f"levels must have shape ({n},)")
+        max_level = int(levels_np.max(initial=0))
+        entry = int(np.argmax(levels_np))  # lowest id at the top level
 
-    # ---- storage rows (quantized per config), norms
-    dataf = data.float()
-    if get_metric(metric).normalize_add:
-        dataf = normalize_rows(dataf)
-    src = torch.zeros((n_cap, dim), dtype=torch.float32, device=dev)
-    src[:n] = dataf
-    vectors, scales, norms_all = quantize_rows(src, config.storage)
-    del src
-    norms = norms_all if get_metric(metric).needs_norms \
-        else torch.zeros((n_cap,), dtype=torch.float32, device=dev)
+        # ---- storage rows (quantized per config), norms
+        dataf = data.float()
+        if get_metric(metric).normalize_add:
+            dataf = normalize_rows(dataf)
+        src = torch.zeros((n_cap, dim), dtype=torch.float32, device=dev)
+        src[:n] = dataf
+        vectors, scales, norms_all = quantize_rows(src, config.storage)
+        del src
+        norms = norms_all if get_metric(metric).needs_norms \
+            else torch.zeros((n_cap,), dtype=torch.float32, device=dev)
 
     # ---- layer 0: kNN over everything, select, reverse, shrink
-    flat = flat_from_rows(dataf, metric, scan_dtype=scan_dtype)
-    knn_ids, knn_d = knn_table(flat, dataf, knn_k, metric, batch=batch)
-    del flat
-    knn_ids = torch.nn.functional.pad(knn_ids, (0, 0, 0, n_cap - n), value=-1)
-    knn_d = torch.nn.functional.pad(knn_d, (0, 0, 0, n_cap - n), value=INF)
-    stage(f"layer0 kNN (k={knn_k})")
+    with stage("hnsw.bulk.layer0_knn", f"layer0 kNN (k={knn_k})"):
+        flat = flat_from_rows(dataf, metric, scan_dtype=scan_dtype)
+        knn_ids, knn_d = knn_table(flat, dataf, knn_k, metric, batch=batch)
+        del flat
+        knn_ids = torch.nn.functional.pad(knn_ids, (0, 0, 0, n_cap - n),
+                                          value=-1)
+        knn_d = torch.nn.functional.pad(knn_d, (0, 0, 0, n_cap - n),
+                                        value=INF)
     slab = min(SLAB_ROWS, n_cap)
-    fwd, fwd_d = _select_rounds(vectors, scales, norms, knn_ids, knn_d, m,
-                                metric, slab, keep_pruned)
-    del knn_ids, knn_d
-    stage("layer0 forward select")
-    rev, rev_d = reverse_scatter(fwd, fwd_d, n_cap, m_max0 + m)
-    stage("layer0 reverse scatter")
-    adj0 = _merge_rounds(vectors, scales, norms, fwd, fwd_d, rev, rev_d,
-                         m_max0, metric, slab, keep_pruned)
-    del fwd, fwd_d, rev, rev_d
-    stage("layer0 shrink merge")
+    with stage("hnsw.bulk.layer0_select", "layer0 forward select"):
+        fwd, fwd_d = _select_rounds(vectors, scales, norms, knn_ids, knn_d,
+                                    m, metric, slab, keep_pruned)
+        del knn_ids, knn_d
+    with stage("hnsw.bulk.layer0_reverse", "layer0 reverse scatter"):
+        rev, rev_d = reverse_scatter(fwd, fwd_d, n_cap, m_max0 + m)
+    with stage("hnsw.bulk.layer0_merge", "layer0 shrink merge"):
+        adj0 = _merge_rounds(vectors, scales, norms, fwd, fwd_d, rev, rev_d,
+                             m_max0, metric, slab, keep_pruned)
+        del fwd, fwd_d, rev, rev_d
 
     # ---- upper layers into the compact arena
     t_cap = arena_capacity(max_elements, m)
@@ -391,18 +404,20 @@ def bulk_build(
         if n_sub == 1:
             adj_up[arows] = -1
             continue
-        # the same power-of-two subset bucket (min 4096) as the JAX package
-        n_sub_cap = max(4096, next_pow2(n_sub))
-        row_ids = torch.from_numpy(
-            np.pad(sub, (0, n_sub_cap - n_sub), constant_values=-1)).to(dev)
-        adj_l = _upper_level(
-            dataf, vectors, scales, norms, row_ids, n_sub,
-            cap=n_sub_cap, m=m, m_max=m_max, metric=metric,
-            keep_pruned=keep_pruned, scan_dtype=scan_dtype, knn_k=knn_k,
-            batch=batch,
-        )
-        adj_up[arows] = adj_l[:n_sub]
-        stage(f"layer {lvl} ({n_sub} nodes)")
+        with stage("hnsw.bulk.upper", f"layer {lvl} ({n_sub} nodes)"):
+            # the same power-of-two subset bucket (min 4096) as the JAX
+            # package
+            n_sub_cap = max(4096, next_pow2(n_sub))
+            row_ids = torch.from_numpy(
+                np.pad(sub, (0, n_sub_cap - n_sub),
+                       constant_values=-1)).to(dev)
+            adj_l = _upper_level(
+                dataf, vectors, scales, norms, row_ids, n_sub,
+                cap=n_sub_cap, m=m, m_max=m_max, metric=metric,
+                keep_pruned=keep_pruned, scan_dtype=scan_dtype, knn_k=knn_k,
+                batch=batch,
+            )
+            adj_up[arows] = adj_l[:n_sub]
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)

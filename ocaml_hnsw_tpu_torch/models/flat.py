@@ -37,6 +37,7 @@ from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import (
     quantize_int8, scan_topk,
 )
 from ocaml_hnsw_tpu_torch.utils import round_up
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
 #: bytes of one f32 score block [query block, row slab]; the exact scan
 #: holds up to two such blocks at a time (product, scores)
@@ -204,25 +205,28 @@ def flat_search(flat: FlatTensors, queries, k: int, metric: str,
     from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 
     m = get_metric(metric)
-    q = preprocess_queries(queries, metric)
     rerank_k = max(k, min(rerank_k, flat.n_cap))
-    if m.matmul_score is None:
-        ids = _chunked_exact_candidates(flat, q, rerank_k, m)
-    elif exact:
-        ids = _exact_candidates(flat, q, rerank_k, m)
-    else:
-        # the bf16 or int8 scan: the scan-and-select kernel (K3)
-        ids = scan_topk(flat.scan, flat.scales, flat.norms, flat.deleted,
-                        flat.n, q, rerank_k, metric)[1]
-    ids = torch.sort(ids, dim=1).values.to(torch.int32)
-    # exact rerank of the candidates (f32 rows, or bf16 rows upcast) through
-    # the gather-distance kernel
-    d = gather_dists(flat.rerank, flat.scales, q, ids, metric)
-    # mask tombstones and unoccupied slots (zero rows would score finite)
-    d = torch.where(flat.deleted[ids.long()] | (ids >= flat.n), INF, d)
-    # stable sort: equal distances keep the lower id
-    out_d, idx = torch.sort(d, dim=1, stable=True)
-    out_d = out_d[:, :k]
-    out_ids = torch.gather(ids, 1, idx[:, :k])
-    out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
-    return out_ids, out_d
+    with annotate("hnsw.flat.scan"):
+        q = preprocess_queries(queries, metric)
+        if m.matmul_score is None:
+            ids = _chunked_exact_candidates(flat, q, rerank_k, m)
+        elif exact:
+            ids = _exact_candidates(flat, q, rerank_k, m)
+        else:
+            # the bf16 or int8 scan: the scan-and-select kernel (K3)
+            ids = scan_topk(flat.scan, flat.scales, flat.norms, flat.deleted,
+                            flat.n, q, rerank_k, metric)[1]
+    with annotate("hnsw.flat.rerank"):
+        ids = torch.sort(ids, dim=1).values.to(torch.int32)
+        # exact rerank of the candidates (f32 rows, or bf16 rows upcast)
+        # through the gather-distance kernel
+        d = gather_dists(flat.rerank, flat.scales, q, ids, metric)
+        # mask tombstones and unoccupied slots (zero rows would score
+        # finite)
+        d = torch.where(flat.deleted[ids.long()] | (ids >= flat.n), INF, d)
+        # stable sort: equal distances keep the lower id
+        out_d, idx = torch.sort(d, dim=1, stable=True)
+        out_d = out_d[:, :k]
+        out_ids = torch.gather(ids, 1, idx[:, :k])
+        out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
+        return out_ids, out_d

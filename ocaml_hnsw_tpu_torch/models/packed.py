@@ -65,6 +65,7 @@ from ocaml_hnsw_tpu_torch.ops.sortmerge import (
     entries_to_beam, merge_into_beam, topk_ascending,
 )
 from ocaml_hnsw_tpu_torch.utils import round_up
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
 #: node rows per slab of pack_graph (bounds the [slab, deg, D] f32 gather:
 #: 1 GB at deg=32, D=128)
@@ -348,28 +349,32 @@ def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
     ar = torch.arange(1, expand + 1, dtype=torch.int32, device=q8.device)
 
     def body(beam_pk, beam_d):
-        # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask)
-        unexp = (beam_pk & 1) == 0
-        slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
-        sel_mask = unexp & (slot <= expand)
-        beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
-        oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
-        pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
-        active = torch.any(oh, dim=2)
-        nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
-        # gather + score of the E·slots inlined neighbours (K1)
-        cand_ids, cand_d = packed_score(nodes, packed.meta, packed.pay, q8,
-                                        qn, packed.scale, needs_norms, slots,
-                                        bits)
-        in_beam = torch.any(
-            cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
-        fresh = (cand_ids >= 0) & ~in_beam & first_occurrence_mask(cand_ids)
-        cand_pk = torch.where(fresh, cand_ids * 2, -1)  # enter unexpanded
-        cand_d = torch.where(fresh, cand_d, INF)
-        beam_d, (beam_pk,) = merge_into_beam(
-            beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef,
-        )
-        return beam_pk, beam_d
+        with annotate("hnsw.packed.beam_iter"):
+            # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask)
+            unexp = (beam_pk & 1) == 0
+            slot = torch.cumsum(unexp.to(torch.int32), dim=1,
+                                dtype=torch.int32)
+            sel_mask = unexp & (slot <= expand)
+            beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
+            oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
+            pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
+            active = torch.any(oh, dim=2)
+            nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1,
+                                -1)
+            # gather + score of the E·slots inlined neighbours (K1)
+            cand_ids, cand_d = packed_score(nodes, packed.meta, packed.pay,
+                                            q8, qn, packed.scale, needs_norms,
+                                            slots, bits)
+            in_beam = torch.any(
+                cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
+            fresh = ((cand_ids >= 0) & ~in_beam
+                     & first_occurrence_mask(cand_ids))
+            cand_pk = torch.where(fresh, cand_ids * 2, -1)  # enter unexpanded
+            cand_d = torch.where(fresh, cand_d, INF)
+            beam_d, (beam_pk,) = merge_into_beam(
+                beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef,
+            )
+            return beam_pk, beam_d
 
     return body
 
@@ -442,8 +447,11 @@ def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
         beam_pk, beam_d = _entries_to_packed_beam(entry_ids, entry_d, ef)
     it = 0
     while it < max_iters:
-        if early_exit and not bool(torch.any((beam_pk & 1) == 0)):
-            break
+        if early_exit:
+            with annotate("hnsw.sync.exit_check"):
+                done = not bool(torch.any((beam_pk & 1) == 0))
+            if done:
+                break
         beam_pk, beam_d = step(beam_pk, beam_d)
         it += 1
     if raw_state:
@@ -491,54 +499,60 @@ def knn_search_packed(
         rerank_k = min(ef, max(2 * k, 16))
     rerank_k = max(k, min(rerank_k, ef))
     needs_norms = get_metric(metric).needs_norms
-    q = preprocess_queries(queries, metric)
-    qn = query_norms(q, metric)
-    if seeds is not None:
-        entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e, metric)
-    else:
-        cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
-        entry_ids, entry_d = cur[:, None], cur_d[:, None]
-    if bits == 8:
-        q8 = quantize_queries(q, packed.scale)
-    else:
-        # fractional bf16 on the payload's s-grid (a true division, as in
-        # the JAX engine, where the scale is a traced value)
-        q8 = (q / packed.scale).to(torch.bfloat16)
-    if width > q8.shape[1]:
-        q8 = torch.nn.functional.pad(q8, (0, width - q8.shape[1]))
-    if expand_schedule is not None:
-        # phased beam, e.g. ((8, 2), (2, 26)): wide expansions fill the beam,
-        # then it cruises narrow; expanded flags carry across phases
-        state = (None, None)
-        for e_p, mi_p in expand_schedule:
-            state = beam_search_layer_packed(
+    with annotate("hnsw.packed.seed"):
+        q = preprocess_queries(queries, metric)
+        qn = query_norms(q, metric)
+        if seeds is not None:
+            entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e,
+                                              metric)
+        else:
+            cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
+            entry_ids, entry_d = cur[:, None], cur_d[:, None]
+        if bits == 8:
+            q8 = quantize_queries(q, packed.scale)
+        else:
+            # fractional bf16 on the payload's s-grid (a true division, as
+            # in the JAX engine, where the scale is a traced value)
+            q8 = (q / packed.scale).to(torch.bfloat16)
+        if width > q8.shape[1]:
+            q8 = torch.nn.functional.pad(q8, (0, width - q8.shape[1]))
+    with annotate("hnsw.packed.beam"):
+        if expand_schedule is not None:
+            # phased beam, e.g. ((8, 2), (2, 26)): wide expansions fill the
+            # beam, then it cruises narrow; expanded flags carry across
+            # phases
+            state = (None, None)
+            for e_p, mi_p in expand_schedule:
+                state = beam_search_layer_packed(
+                    packed, q8, qn, entry_ids, entry_d, ef,
+                    needs_norms=needs_norms, max_iters=mi_p, expand=e_p,
+                    early_exit=False, init_pk=state[0], init_d=state[1],
+                    raw_state=True, slots=slots, bits=bits,
+                )[:2]
+            ids, d = state[0] >> 1, state[1]
+        elif (interleave > 1 and queries.shape[0] % interleave == 0
+              and deg_limit is None):
+            # independent sub-batches, fixed max_iters (early_exit ignored)
+            ids, d, _ = beam_search_layer_packed_duo(
                 packed, q8, qn, entry_ids, entry_d, ef,
-                needs_norms=needs_norms, max_iters=mi_p, expand=e_p,
-                early_exit=False, init_pk=state[0], init_d=state[1],
-                raw_state=True, slots=slots, bits=bits,
-            )[:2]
-        ids, d = state[0] >> 1, state[1]
-    elif (interleave > 1 and queries.shape[0] % interleave == 0
-          and deg_limit is None):
-        # independent sub-batches, fixed max_iters (early_exit ignored)
-        ids, d, _ = beam_search_layer_packed_duo(
-            packed, q8, qn, entry_ids, entry_d, ef,
-            needs_norms=needs_norms, max_iters=max_iters, expand=expand,
-            ways=interleave, bits=bits,
-        )
-    else:
-        ids, d, _ = beam_search_layer_packed(
-            packed, q8, qn, entry_ids, entry_d, ef,
-            needs_norms=needs_norms, max_iters=max_iters, expand=expand,
-            early_exit=early_exit, slots=slots, bits=bits,
-        )
-    # tombstone filter on the approx beam, keep top rerank_k live candidates
-    dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
-    d = torch.where(dead, INF, d)
-    _, top_ids = topk_ascending(d, torch.where(dead, -1, ids), rerank_k)
-    # exact f32 rerank (K2) -> exact final ordering
-    d_exact = dists_to_ids(graph.vectors, graph.scales, graph.norms, q, qn,
-                           top_ids, metric)
-    out_d, out_ids = topk_ascending(d_exact, top_ids, k)
-    out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
-    return out_ids, out_d
+                needs_norms=needs_norms, max_iters=max_iters, expand=expand,
+                ways=interleave, bits=bits,
+            )
+        else:
+            ids, d, _ = beam_search_layer_packed(
+                packed, q8, qn, entry_ids, entry_d, ef,
+                needs_norms=needs_norms, max_iters=max_iters, expand=expand,
+                early_exit=early_exit, slots=slots, bits=bits,
+            )
+    with annotate("hnsw.packed.rerank"):
+        # tombstone filter on the approx beam, keep top rerank_k live
+        # candidates
+        dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
+        d = torch.where(dead, INF, d)
+        _, top_ids = topk_ascending(d, torch.where(dead, -1, ids), rerank_k)
+        # exact f32 rerank (K2) -> exact final ordering
+        d_exact = dists_to_ids(graph.vectors, graph.scales, graph.norms, q,
+                               qn, top_ids, metric)
+        out_d, out_ids = topk_ascending(d_exact, top_ids, k)
+        out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
+        return out_ids, out_d

@@ -40,6 +40,7 @@ from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 from ocaml_hnsw_tpu_torch.ops.sortmerge import (
     entries_to_beam, merge_into_beam, topk_ascending,
 )
+from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
 #: beam loops read "any member unexpanded?" on the host every this many
 #: iterations (module docstring)
@@ -195,7 +196,8 @@ def build_seed_index(graph: GraphTensors, metric: str,
     the graph has no upper nodes.  cap: serve the scan from at most `cap`
     rows — highest levels first, the level-1 remainder subsampled evenly
     (the same selection as the JAX package)."""
-    lv = graph.levels.cpu().numpy()
+    with annotate("hnsw.sync.seed_levels"):
+        lv = graph.levels.cpu().numpy()
     upper = np.nonzero(lv >= 1)[0].astype(np.int32)
     if upper.size == 0:
         return None

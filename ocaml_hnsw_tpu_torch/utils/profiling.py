@@ -3,7 +3,9 @@
 
 - `trace(logdir)` / `annotate(name)`: a torch.profiler capture (a Chrome
   trace in `logdir`) around build and search sections, and named regions
-  inside it;
+  inside it.  `annotate` is the port's one span helper: the query and build
+  paths open `hnsw.*` spans with it (PERF.md lists them), which cost one C
+  call each while no profiler records;
 - `sync(x)`: wait for the device that holds `x`.  CUDA calls return before
   the device finishes, so a host clock must synchronize before it is read;
 - `Timer`: a wall-clock timer;
@@ -36,8 +38,18 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+#: what `annotate` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region inside a trace (context manager)."""
+    """Named region inside a trace (context manager): a
+    `record_function` span while a torch.profiler records, on the same
+    clock as the device's kernels; otherwise one shared null context, so
+    a span off the trace costs the profiler check and nothing else.  A
+    span never synchronises."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
