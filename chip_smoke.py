@@ -50,6 +50,8 @@ their results against exact ground truth computed on the card:
     python3 chip_smoke.py --phase-b8      # build, then phase B8 alone, stop
     python3 chip_smoke.py --phase-g       # build, the main path's data,
                                           # then phase G alone, stop
+    python3 chip_smoke.py --beam-update   # build, K4's checks, then K4 on
+                                          # the main path's queries, stop
     python3 chip_smoke.py --profile-dir DIR  # also write the profiled
                                              # windows' op tables to DIR
 
@@ -77,6 +79,18 @@ blocks of D1 and D2, on phase E's level-0 build block and per-shard
 rerank, K1 on a phase-C construction beam step, on a phase-E shard's query
 beam step and at phase F's variants (`slots` on a deg_limit step,
 `bits=4`, the refined deg-16 payload; K2 on refine's candidate block).
+
+K4 (`beam_update`, the packed beam loop's dedup, merge and next-node
+select) is held against its plain version bit for bit (the update, the
+update without the next selection, the selection alone) at the paths'
+shapes (`K4_SHAPES`: the main path's half batch, glove1m's packed point,
+the construction beam, a deg_limit step; timed cold) and on edge shapes
+and rows (`K4_EDGE_SHAPES`: B no multiple of a block, ef and C no powers
+of two, the widest rows it takes; tied distances, candidates all -1,
+repeated or already in the beam, beams fully expanded or empty).  With
+`--beam-update`, the main path's 8192-query call must launch it 2 ×
+max_iters + 2 times and answer exactly as the eager beam step it replaced;
+it is timed on that call's own inputs, and the two calls in turns.
 
 K3 (`scan_topk`, the flat scan and its top-k select in one kernel) is held
 against its plain version on edge cases (B and N no multiple of a tile, D =
@@ -135,6 +149,9 @@ from ocaml_hnsw_tpu_torch.models import flat as flat_mod
 from ocaml_hnsw_tpu_torch.models import packed as packed_mod
 from ocaml_hnsw_tpu_torch.models import search as search_mod
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
+from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import (
+    beam_update, beam_update_plain,
+)
 from ocaml_hnsw_tpu_torch.ops.kernels import gather_dist as k2_mod
 from ocaml_hnsw_tpu_torch.ops.kernels import payload_score as k1_mod
 from ocaml_hnsw_tpu_torch.ops.kernels.gather_dist import (
@@ -242,6 +259,24 @@ K3_MAIN_KERNEL = "scan_topk_wgmma"
 #: reps of K3's plain version at the main-path shapes (0.2-2.6 s a call)
 K3_PLAIN_REPS = 3
 
+#: K4 (beam_update) at the paths' shapes: label, B, ef, C, E.  The main
+#: path's interleaved half (sift1m: ef 64, E 2 x deg 32; bits=4 has the same
+#: shape), glove1m's packed point, the incremental build's construction
+#: beam, phase F's deg_limit=16 step (slots 16, no interleave)
+K4_SHAPES = (("sift B=4096", 4096, 64, 64, 2),
+             ("glove packed ef=160", 4096, 160, 64, 2),
+             ("construction beam", 1024, 200, 256, 8),
+             ("slots=16 B=8192", 8192, 64, 32, 2))
+#: K4 edge shapes: B no multiple of a block's rows, ef and C no powers of
+#: two, a merge inside one register (width 32), the widest rows it takes
+K4_EDGE_SHAPES = (("ef=100 C=64", 777, 100, 64, 2),
+                  ("ef=12 C=5", 33, 12, 5, 3),
+                  ("ef=10 C=16 (width 32)", 9, 10, 16, 1),
+                  ("ef=3 C=2", 5, 3, 2, 4),
+                  ("ef=64 C=300 (block)", 65, 64, 300, 2),
+                  ("ef=4096 C=64 (widest beam)", 3, 4096, 64, 4),
+                  ("ef=1000 C=4000 (widest run)", 2, 1000, 4000, 2))
+
 #: NVIDIA H100 SXM data sheet: memory rate, dense int8 and f32 (no tensor
 #: core) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -261,6 +296,10 @@ K3_NO_LIBRARY = ("no single PyTorch call computes it: a product and a top-k "
                  "same shapes alone, as context (never called by the port)")
 K3_REPLACES = ("XLA's MXU dot_general fused with jax.lax.approx_min_k "
                "(ocaml_hnsw_tpu/models/flat.py:170-200), not a Pallas kernel")
+K4_REPLACES = ("no TPU kernel: the JAX engine's beam step (models/packed.py,"
+               " _beam_body) is one XLA program on the TPU")
+K4_NO_LIBRARY = ("no single PyTorch call computes it: a dedup, a sort, a "
+                 "merge and a select are many calls (plain_ms)")
 K1_REGS: dict = {}  # registers per K1 instance (phase_build_kernels)
 #: the tensor-core product instructions the build step counts per kernel:
 #: mma.sync's (HMMA, IMMA) and wgmma's (HGMMA, IGMMA)
@@ -543,6 +582,7 @@ def reset_launches() -> None:
                    gather_dists.launches_by_dtype):
         counts.update(dict.fromkeys(counts, 0))
     packed_score.launches = 0
+    beam_update.launches = 0
     scan_topk.launches = 0
     for counts in (scan_topk.launches_by_dtype, scan_topk.launches_by_path):
         counts.update(dict.fromkeys(counts, 0))
@@ -559,6 +599,7 @@ def read_launches() -> dict:
                              "plain route")
     return {"gather_dists": gather_dists.launches,
             "packed_score": packed_score.launches,
+            "beam_update": beam_update.launches,
             "scan_topk": scan_topk.launches,
             **{f"gather_dists/{p}": n
                for p, n in gather_dists.launches_by_path.items()},
@@ -1471,6 +1512,7 @@ def kernels_only(gen) -> int:
     """Edge checks plus cold timings on synthetic data (no index)."""
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
     check_k1_edges(gen)
+    check_k4_edges(gen, flush)
     check_k3_edges(gen)
     x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
                                    seed=7)).to(DEV)
@@ -1494,6 +1536,230 @@ def kernels_only(gen) -> int:
     check_int8_scan(gen)
     say("[kernels-only] all kernel checks passed")
     return 0
+
+
+# ---------------------------------------------------------- K4 beam update
+def k4_inputs(b: int, ef: int, c: int, gen, ties: bool = False,
+              edges: bool = False):
+    """A sorted beam (pk = 2·id + expanded, ~70% expanded, a quarter of
+    the rows part empty) and C candidates a row (~30% of them beam ids,
+    ~15% -1, the rest from a pool of 4·(ef + C) ids, so ids repeat), made
+    with numpy from `gen`.  ties=True: distances from 16 values.
+    edges=True: rows cycle through all candidates -1, one id repeated,
+    every candidate in the beam, a fully expanded beam, an empty beam."""
+    n = 4 * (ef + c)
+    ids = np.argsort(gen.random((b, n)), axis=1)[:, :ef].astype(np.int32)
+
+    def dists(shape):
+        if ties:
+            return gen.integers(0, 16, shape).astype(np.float32)
+        return (gen.random(shape) * 100).astype(np.float32)
+
+    d = np.sort(dists((b, ef)), axis=1)
+    flags = (gen.random((b, ef)) < 0.7).astype(np.int32)
+    part = np.where(gen.random(b) < 0.25, gen.integers(0, ef + 1, b), 0)
+    empty = np.arange(ef)[None, :] >= ef - part[:, None]
+    pick = gen.random((b, c))
+    cid = np.where(pick < 0.3,
+                   ids[np.arange(b)[:, None], gen.integers(0, ef, (b, c))],
+                   np.where(pick < 0.45, -1, gen.integers(0, n, (b, c))))
+    cid = cid.astype(np.int32)
+    cd = dists((b, c))
+    if edges:
+        kind = np.arange(b) % 5
+        cid[kind == 0] = -1
+        cid[kind == 1] = cid[kind == 1][:, :1]
+        cid[kind == 2] = ids[kind == 2][:, np.arange(c) % ef]
+        flags[kind == 3] = 1
+        empty[kind == 4] = True
+    pk = np.where(empty, -1, ids * 2 + flags).astype(np.int32)
+    d[empty] = np.inf
+    cd[cid < 0] = np.inf
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+    return put(pk), put(d), put(cid), put(cd)
+
+
+def k4_cost(b: int, ef: int, c: int, e: int) -> int:
+    """Bytes of one beam_update call: the beam read and written, the
+    candidates read, the nodes written."""
+    return b * ef * 16 + b * c * 8 + b * e * 4
+
+
+def bits_equal(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def k4_case(label: str, args, e: int, flush=None,
+            time_it: bool = False) -> dict:
+    """beam_update against its plain version, bit for bit: the update with
+    and without the next selection, and the selection alone; each CUDA
+    call must launch the kernel."""
+    pk, d, cid, cd = args
+    b, ef = pk.shape
+    c = cid.shape[1]
+    calls = [((pk, d, cid, cd), dict(expand=e)),
+             ((pk, d, cid, cd), dict(expand=e, select_next=False)),
+             ((pk, d), dict(expand=e))]
+    for a, kw in calls:
+        before = beam_update.launches
+        out = beam_update(*a, **kw)
+        ref = beam_update_plain(*a, **kw)
+        torch.cuda.synchronize()
+        if beam_update.launches != before + (b > 0):
+            raise AssertionError(f"K4 {label}: a CUDA call did not launch")
+        for name, x, y in zip(("beam_pk", "beam_d", "nodes"), out, ref):
+            if not bits_equal(x, y):
+                raise AssertionError(f"K4 {label} {kw}: {name} differs from "
+                                     "plain")
+    row = dict(case=label, shape=[b, ef, c, e], max_abs_err=0.0)
+    if time_it:
+        timed(row, lambda: beam_update(pk, d, cid, cd, expand=e),
+              lambda: beam_update_plain(pk, d, cid, cd, expand=e),
+              k4_cost(b, ef, c, e), 0, INT8_OPS_PER_S, flush)
+    say(f"[K4 beam_update] {label} B={b} ef={ef} C={c} E={e}: equal bit for "
+        f"bit (update, update without select, select alone); {fmt(row)}")
+    return row
+
+
+def check_k4_edges(gen, flush=None) -> list[dict]:
+    """K4 on the paths' shapes (timed cold, L2 flushed) and edge shapes,
+    with real-valued and tied distances, and on rows of edge cases."""
+    rows = []
+    for label, b, ef, c, e in K4_SHAPES + K4_EDGE_SHAPES:
+        main = (label, b, ef, c, e) in K4_SHAPES
+        rows.append(k4_case(f"cold {label}", k4_inputs(b, ef, c, gen), e,
+                            flush, time_it=main and flush is not None))
+        rows.append(k4_case(f"{label} ties", k4_inputs(b, ef, c, gen,
+                                                       ties=True), e))
+        rows.append(k4_case(f"{label} edge rows", k4_inputs(
+            b, ef, c, gen, ties=True, edges=True), e))
+    rows.append(k4_case("B=0", k4_inputs(0, 64, 64, gen), 2))
+    return rows
+
+
+def k1_between(k1_args, k4_args, e: int, smi: str, reps: int = 30) -> None:
+    """K1's device time on the main path's own inputs, from the profiler's
+    kernel records (no host time in them, as the benchmark's trace reads
+    it), when what runs between two K1 calls is K4, the eager beam step K4
+    replaced (~200 small kernels), or nothing on an idle card (a 200 us
+    host wait after a synchronize): the means over `reps` calls, so a
+    change in K1's traced time can be told from a change in K1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one(mode):
+        packed_score(*k1_args)
+        if mode == "k4":
+            beam_update(*k4_args, expand=e)
+        elif mode == "eager":
+            beam_update_plain(*k4_args, expand=e)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 200e-6:
+                pass
+
+    out = {}
+    for mode in ("k4", "eager", "idle"):
+        for _ in range(3):
+            one(mode)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                one(mode)
+            torch.cuda.synchronize()
+        k1 = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and "packed_score_kernel" in ev.key]
+        n = sum(ev.count for ev in k1)
+        out[mode] = (sum(ev.self_device_time_total for ev in k1) / n
+                     if n else float("nan"), n)
+    say(f"[K4 main] K1 real B={QPS_BATCH // 2}, device time by the profiler"
+        f" when between two K1 calls runs K4: {out['k4'][0]:.1f} us, the "
+        f"eager step: {out['eager'][0]:.1f} us, nothing on an idle card: "
+        f"{out['idle'][0]:.1f} us (means of {out['k4'][1]}, "
+        f"{out['eager'][1]}, {out['idle'][1]} records) [{smi}]")
+
+
+def phase_k4(smi: str, flush, gen) -> list[dict]:
+    """K4 on the main path: the SIFT1M-shaped index built as main builds
+    it, then 8192-query knn_query calls at the main knobs.  The call
+    launches K4 2·max_iters + 2 times (each half's first selection, then
+    one update an iteration), and answers exactly as the same call with
+    the plain version in K4's place (the eager beam step it replaced).
+    Times K4 on the main path's own inputs at the 10th iteration, the two
+    calls in alternating pairs, and profiles the K4 call."""
+    data = clustered(N, DIM, n_clusters=400, seed=7)
+    qps_queries = queries_like(data, QPS_BATCH, seed=9)
+    index = Index("l2", DIM, device=DEV.type)
+    index.init_index(max_elements=N, M=M, ef_construction=EFC)
+    index.add_items(data)
+    del data
+    index.knn_query(qps_queries, **QUERY_KNOBS)  # packs, seeds, warms up
+    reset_launches()
+    with recording(packed_mod, "beam_update") as calls, \
+            recording(packed_mod, "packed_score") as k1_calls:
+        labels, dists = index.knn_query(qps_queries, **QUERY_KNOBS)
+    per_call = read_launches()
+    want = 2 * QUERY_KNOBS["max_iters"] + 2
+    if per_call["beam_update"] != want or len(calls) != want:
+        raise AssertionError(f"K4: {per_call['beam_update']} launches, "
+                             f"{len(calls)} calls in an {QPS_BATCH}-query "
+                             f"call, {want} expected")
+    say(f"[K4 main] launches per {QPS_BATCH}-query call: "
+        f"{json.dumps(per_call)}")
+
+    def eager():
+        real = packed_mod.beam_update
+        packed_mod.beam_update = beam_update_plain
+        try:
+            return index.knn_query(qps_queries, **QUERY_KNOBS)
+        finally:
+            packed_mod.beam_update = real
+
+    e_labels, e_dists = eager()
+    if not (np.array_equal(labels, e_labels)
+            and labels.dtype == e_labels.dtype
+            and dists.tobytes() == e_dists.tobytes()):
+        raise AssertionError("K4: knn_query's answers differ from the eager "
+                             "beam step's")
+    say(f"[K4 main] {QPS_BATCH} queries: labels and distances equal the "
+        "eager beam step's bit for bit")
+    e = QUERY_KNOBS["expand"]
+    rows = []
+    for h in (0, 1):
+        args = calls[2 + 2 * CAPTURE_ITER + h]
+        rows.append(k4_case(f"real sift B={QPS_BATCH // 2} half {h}", args, e,
+                            flush, time_it=True))
+    k1_between(k1_calls[2 * CAPTURE_ITER], calls[2 + 2 * CAPTURE_ITER], e,
+               smi)
+    del calls, k1_calls
+    times = {"k4": [], "eager": []}
+    for i in range(6):
+        for side in (("k4", "eager") if i % 2 == 0 else ("eager", "k4")):
+            fn = eager if side == "eager" else (
+                lambda: index.knn_query(qps_queries, **QUERY_KNOBS))
+            t0 = time.perf_counter()
+            fn()
+            times[side].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"[K4 main] host-clock call, median of 6 alternating: K4 "
+        f"{med['k4'] * 1e3:.1f} ms = {QPS_BATCH / med['k4']:.0f} QPS, eager "
+        f"{med['eager'] * 1e3:.1f} ms = {QPS_BATCH / med['eager']:.0f} QPS; "
+        f"all K4 {json.dumps([round(t * 1e3, 2) for t in times['k4']])} ms "
+        f"[{smi}]")
+    busy = busy_share(lambda: index.knn_query(qps_queries, **QUERY_KNOBS),
+                      "k4_query")
+    say(f"[K4 main] profiled K4 call: {fmt_share(busy)}; device time by "
+        f"kernel [name, ms, count]: {json.dumps(busy['top'])} [{smi}]")
+    return rows
 
 
 def cold_ids(gen, b: int, k: int, n: int) -> torch.Tensor:
@@ -2523,6 +2789,14 @@ def main(argv: list[str]) -> int:
     gen = np.random.default_rng(3)
     if "--kernels-only" in argv:
         return kernels_only(gen)
+    if "--beam-update" in argv:
+        t0 = time.perf_counter()
+        flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
+        check_k4_edges(gen, flush)
+        phase_k4(smi, flush, gen)
+        say(f"[K4] phase took {time.perf_counter() - t0:.1f} s; "
+            "--beam-update: stop here")
+        return 0
     if "--phase-b8" in argv:
         t0 = time.perf_counter()
         phase_stream("B8", *STREAM_PHASES["B8"], smi,
@@ -2549,6 +2823,7 @@ def main(argv: list[str]) -> int:
             "stop here")
         return 0
     k1_rows = check_k1_edges(gen)
+    k4_rows = check_k4_edges(gen, flush)
     k2_rows = check_k2_edges(x, gen)
     k3_rows = check_k3_edges(gen)
 
@@ -2776,6 +3051,18 @@ def main(argv: list[str]) -> int:
                       "slots": r["slots"], "bits": r["bits"],
                       **{s: r[s] for s in shapes + k1_ring}}
                      for r in k1_rows if "ms" in r]),
+        dict(name="beam_update", route="cuda",
+             source="ocaml_hnsw_tpu_torch/csrc/beam_update.cu",
+             replaces=None, replaces_note=K4_REPLACES,
+             launches=launches["beam_update"],
+             launches_per_batch=batch_launches["beam_update"],
+             launches_by_phase={p: c["beam_update"]
+                                for p, c in by_phase.items()},
+             max_abs_err=0.0, **headline(k4_rows, "cold sift B=4096"),
+             library_ms=None, library_note=K4_NO_LIBRARY,
+             shapes=[{"case": r["case"], "shape": r["shape"],
+                      **{s: r[s] for s in shapes}}
+                     for r in k4_rows if "ms" in r]),
         dict(name="gather_dists", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/gather_dist.cu",
              replaces="ocaml_hnsw_tpu/ops/pallas/gather_dist.py:65",

@@ -9,12 +9,14 @@ the same grid, and
     d = s²·(‖x8‖² − 2·x8·q8) + ‖q‖²           (l2)
     d = 1 − s²·(x8·q8)                         (ip / cosine)
 
-where ‖x8‖² is a precomputed exact int32.  Each beam iteration's select →
-gather → score runs through the packed-score kernel (K1,
+where ‖x8‖² is a precomputed exact int32.  Each beam iteration is two
+launches: the gather → score of the expanded nodes' neighbours (K1,
 `ops/kernels/payload_score.py`), whose bits=8 dot is exact int32 (the JAX
-engine rounds each product to bf16).  Beam state stays in the f32 distance
-domain, merged by the same bitonic networks as the JAX package, and a final
-exact f32 rerank (K2) makes the returned order exact.
+engine rounds each product to bf16), then the dedup against the beam, the
+merge and the next iteration's select (K4, `ops/kernels/beam_update.py`).
+Beam state stays in the f32 distance domain, merged by the same bitonic
+networks as the JAX package, and a final exact f32 rerank (K2) makes the
+returned order exact.
 
 The JAX package's options, all served by K1:
 
@@ -59,11 +61,10 @@ from ocaml_hnsw_tpu_torch.ops.bitset import first_occurrence_mask
 from ocaml_hnsw_tpu_torch.ops.distance import (
     INF, dists_to_ids, gather_dequant, query_norms,
 )
+from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import beam_update
 from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import packed_score
 from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
-from ocaml_hnsw_tpu_torch.ops.sortmerge import (
-    entries_to_beam, merge_into_beam, topk_ascending,
-)
+from ocaml_hnsw_tpu_torch.ops.sortmerge import entries_to_beam, topk_ascending
 from ocaml_hnsw_tpu_torch.utils import round_up
 from ocaml_hnsw_tpu_torch.utils.profiling import annotate
 
@@ -342,41 +343,30 @@ def refresh_payload_rows(packed: PackedGraph, vectors, scales, adj0, rows,
 
 def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
                expand: int, slots: int | None = None, bits: int = 8):
-    """One iteration of the packed beam loop as a (pk, d) -> (pk, d)
-    closure over this (sub)batch's query tensors; K1 scores the first
-    `slots` neighbours of each expanded node (all when None)."""
+    """The packed beam loop over this (sub)batch's query tensors, as two
+    closures: `select(pk, d) -> (pk, d, nodes)` takes the first iteration's
+    nodes, and `body(pk, d, nodes, select_next) -> (pk, d, nodes)` runs one
+    iteration: K1 scores the first `slots` neighbours (all when None) of
+    each of `nodes`, then K4 (`beam_update`) merges the fresh ones into the
+    beam and, if `select_next`, takes the next iteration's nodes (else
+    nodes is None and the expanded flags stay as the iteration left
+    them)."""
     expand = max(1, min(expand, ef))
-    ar = torch.arange(1, expand + 1, dtype=torch.int32, device=q8.device)
 
-    def body(beam_pk, beam_d):
+    def select(beam_pk, beam_d):
+        return beam_update(beam_pk, beam_d, expand=expand)
+
+    def body(beam_pk, beam_d, nodes, select_next):
         with annotate("hnsw.packed.beam_iter"):
-            # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask)
-            unexp = (beam_pk & 1) == 0
-            slot = torch.cumsum(unexp.to(torch.int32), dim=1,
-                                dtype=torch.int32)
-            sel_mask = unexp & (slot <= expand)
-            beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
-            oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
-            pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
-            active = torch.any(oh, dim=2)
-            nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1,
-                                -1)
             # gather + score of the E·slots inlined neighbours (K1)
             cand_ids, cand_d = packed_score(nodes, packed.meta, packed.pay,
                                             q8, qn, packed.scale, needs_norms,
                                             slots, bits)
-            in_beam = torch.any(
-                cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
-            fresh = ((cand_ids >= 0) & ~in_beam
-                     & first_occurrence_mask(cand_ids))
-            cand_pk = torch.where(fresh, cand_ids * 2, -1)  # enter unexpanded
-            cand_d = torch.where(fresh, cand_d, INF)
-            beam_d, (beam_pk,) = merge_into_beam(
-                beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef,
-            )
-            return beam_pk, beam_d
+            # dedup against the beam, merge, next nodes (K4)
+            return beam_update(beam_pk, beam_d, cand_ids, cand_d,
+                               expand=expand, select_next=select_next)
 
-    return body
+    return select, body
 
 
 def _entries_to_packed_beam(entry_ids, entry_d, ef: int):
@@ -405,15 +395,18 @@ def beam_search_layer_packed_duo(packed: PackedGraph, q8, qn, entry_ids,
     b = q8.shape[0]
     h = b // ways
     slices = [slice(i * h, (i + 1) * h) for i in range(ways)]
-    bodies = [_beam_body(packed, q8[s], qn[s], ef, needs_norms, expand,
-                         bits=bits)
-              for s in slices]
+    loops = [_beam_body(packed, q8[s], qn[s], ef, needs_norms, expand,
+                        bits=bits)
+             for s in slices]
     state = [_entries_to_packed_beam(entry_ids[s], entry_d[s], ef)
              for s in slices]
-    for _ in range(max_iters):
-        state = [fn(pk, d) for fn, (pk, d) in zip(bodies, state)]
-    ids = torch.cat([pk for pk, _ in state], dim=0) >> 1
-    d = torch.cat([d for _, d in state], dim=0)
+    if max_iters > 0:
+        state = [select(pk, d) for (select, _), (pk, d) in zip(loops, state)]
+    for it in range(max_iters):
+        state = [body(pk, d, nodes, it + 1 < max_iters)
+                 for (_, body), (pk, d, nodes) in zip(loops, state)]
+    ids = torch.cat([st[0] for st in state], dim=0) >> 1
+    d = torch.cat([st[1] for st in state], dim=0)
     return ids, d, max_iters
 
 
@@ -440,19 +433,24 @@ def beam_search_layer_packed(packed: PackedGraph, q8, qn, entry_ids, entry_d,
         slots = packed_slots(packed, deg_limit, fused)
     elif deg_limit is not None:
         raise ValueError("pass slots or deg_limit, not both")
-    step = _beam_body(packed, q8, qn, ef, needs_norms, expand, slots, bits)
+    select, step = _beam_body(packed, q8, qn, ef, needs_norms, expand, slots,
+                              bits)
     if init_pk is not None:
         beam_pk, beam_d = init_pk, init_d
     else:
         beam_pk, beam_d = _entries_to_packed_beam(entry_ids, entry_d, ef)
     it = 0
+    if max_iters > 0:
+        beam_pk, beam_d, nodes = select(beam_pk, beam_d)
     while it < max_iters:
         if early_exit:
+            # no node selected <=> the beam was fully expanded
             with annotate("hnsw.sync.exit_check"):
-                done = not bool(torch.any((beam_pk & 1) == 0))
+                done = not bool(torch.any(nodes >= 0))
             if done:
                 break
-        beam_pk, beam_d = step(beam_pk, beam_d)
+        beam_pk, beam_d, nodes = step(beam_pk, beam_d, nodes,
+                                      it + 1 < max_iters)
         it += 1
     if raw_state:
         return beam_pk, beam_d, it

@@ -28,6 +28,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so 64-bit addresses are not cut to ints)
 _SIGNATURES = {
+    "ohnsw_beam_update": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                          _int, _int, _int, _int, _int, _vp],
     "ohnsw_gather_dists": [_vp, _int, _vp, _vp, _vp, _vp,
                            _int, _int, _int, _int, _int, _int,
                            _int, _int, _int, _int, _int, _int, _vp],

@@ -298,8 +298,8 @@ class TestKernelBuild:
         assert p.name.startswith("libohnsw_kernels_") and p.suffix == ".so"
         assert p == _lib.library_path()  # stable for unchanged sources
         assert sorted(s.name for s in _lib.CSRC.glob("*.cu")) == [
-            "gather_dist.cu", "payload_score.cu", "scan_topk.cu",
-            "scan_topk_wgmma.cu"]
+            "beam_update.cu", "gather_dist.cu", "payload_score.cu",
+            "scan_topk.cu", "scan_topk_wgmma.cu"]
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))

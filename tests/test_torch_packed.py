@@ -248,3 +248,253 @@ class TestSearchParity:
         assert wide.chunk_w == 2048
         with pytest.raises(ValueError, match="whole neighbours"):
             tpacked.knn_search_packed(tg, wide, q, deg_limit=16, **kw)
+
+
+# ------------------------------------------------- the beam update (K4)
+def _eager_loop(packed, q8, qn, entry_ids, entry_d, ef, needs_norms,
+               max_iters, expand, early_exit=True, bits=8, slots=None,
+               init=None):
+    """The packed beam loop as it stood before K4: a body of eager ops
+    (select, K1, membership, first occurrence, merge_into_beam) per
+    iteration, frozen here as the reference of the new loop shape.
+    Returns the raw (pk, d, iters)."""
+    from ocaml_hnsw_tpu_torch.ops.bitset import first_occurrence_mask
+    from ocaml_hnsw_tpu_torch.ops.kernels.payload_score import (
+        packed_score_plain,
+    )
+    from ocaml_hnsw_tpu_torch.ops.sortmerge import merge_into_beam
+
+    expand = max(1, min(expand, ef))
+    ar = torch.arange(1, expand + 1, dtype=torch.int32)
+
+    def body(beam_pk, beam_d):
+        unexp = (beam_pk & 1) == 0
+        slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
+        sel_mask = unexp & (slot <= expand)
+        beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
+        oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
+        pos = torch.argmax(oh.to(torch.uint8), dim=2)
+        active = torch.any(oh, dim=2)
+        nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
+        cand_ids, cand_d = packed_score_plain(
+            nodes, packed.meta, packed.pay, q8, qn, packed.scale,
+            needs_norms, slots, bits)
+        in_beam = torch.any(
+            cand_ids[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
+        fresh = ((cand_ids >= 0) & ~in_beam
+                 & first_occurrence_mask(cand_ids))
+        cand_pk = torch.where(fresh, cand_ids * 2, -1)
+        cand_d = torch.where(fresh, cand_d, float("inf"))
+        beam_d, (beam_pk,) = merge_into_beam(
+            beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef)
+        return beam_pk, beam_d
+
+    pk, d = init if init is not None else tpacked._entries_to_packed_beam(
+        entry_ids, entry_d, ef)
+    it = 0
+    while it < max_iters:
+        if early_exit and not bool(torch.any((pk & 1) == 0)):
+            break
+        pk, d = body(pk, d)
+        it += 1
+    return pk, d, it
+
+
+def _synthetic_pack(n=400, deg=8, d_pad=128, b=24, e0=6, bits=8, seed=0):
+    """A random pack (some empty slots, many repeated neighbours), queries
+    and seed entries (repeats and -1s among them)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, n // 4, (n, deg), generator=g, dtype=torch.int32)
+    ids = ids * 4 + torch.randint(0, 4, (n, 1), generator=g,
+                                  dtype=torch.int32)
+    ids[torch.rand((n, deg), generator=g) < 0.15] = -1
+    norms = torch.randint(0, 1 << 16, (n, deg), generator=g,
+                          dtype=torch.int32)
+    pay = torch.randint(-127, 128, (n, deg, d_pad), generator=g,
+                        dtype=torch.int8)
+    packed = tpacked.PackedGraph(pay=pay, meta=torch.cat([ids, norms], 1),
+                                 scale=torch.tensor(0.05))
+    if bits == 8:
+        q8 = torch.randint(-127, 128, (b, d_pad), generator=g,
+                           dtype=torch.int8)
+    else:
+        q8 = (torch.randn((b, 2 * d_pad), generator=g) * 3).to(
+            torch.bfloat16)
+    qn = torch.rand(b, generator=g) * 100
+    entry_ids = torch.randint(-1, n, (b, e0), generator=g, dtype=torch.int32)
+    entry_ids[:, 1] = entry_ids[:, 0]
+    entry_d = torch.rand((b, e0), generator=g) * 1e4
+    return packed, q8, qn, entry_ids, entry_d
+
+
+LOOP_CASES = {
+    "early_exit": dict(ef=12, expand=2, max_iters=60),
+    "fixed": dict(ef=16, expand=3, max_iters=7, early_exit=False),
+    "slots_bits4": dict(ef=20, expand=2, max_iters=9, early_exit=False,
+                        slots=5, bits=4),
+    "no_iters": dict(ef=12, expand=2, max_iters=0),
+}
+
+
+class TestBeamUpdate:
+    """The loop shape of K4 (one selection, then K1 + `beam_update` per
+    iteration, no selection after the last) through `beam_update_plain`,
+    against the eager body it replaced; the plain version on edge rows;
+    the wrapper's checks.  The kernel itself is held to the plain version
+    on the card by `chip_smoke.py --beam-update`."""
+
+    @pytest.mark.parametrize("case", sorted(LOOP_CASES))
+    def test_loop_equals_eager_body(self, case):
+        kw = dict(LOOP_CASES[case])
+        bits = kw.pop("bits", 8)
+        packed, q8, qn, e_ids, e_d = _synthetic_pack(bits=bits)
+        pk, d, it = tpacked.beam_search_layer_packed(
+            packed, q8, qn, e_ids, e_d, needs_norms=True, raw_state=True,
+            bits=bits, **kw)
+        r_pk, r_d, r_it = _eager_loop(packed, q8, qn, e_ids, e_d,
+                                     needs_norms=True, bits=bits, **kw)
+        assert torch.equal(pk, r_pk) and torch.equal(d, r_d) and it == r_it
+        if case == "early_exit":
+            assert 0 < it < kw["max_iters"]  # the exit check ended it
+
+    @pytest.mark.parametrize("ways", [1, 2])
+    def test_schedule_and_interleave_equal_eager_body(self, ways):
+        """expand_schedule's phases carry raw state (expanded flags) from
+        one to the next; the interleaved loop runs each half for exactly
+        max_iters."""
+        packed, q8, qn, e_ids, e_d = _synthetic_pack(seed=1)
+        ef, phases = 16, ((4, 2), (2, 5), (1, 3))
+        if ways == 1:
+            state = ref = None
+            for e_p, mi_p in phases:
+                state = tpacked.beam_search_layer_packed(
+                    packed, q8, qn, e_ids, e_d, ef, True, mi_p, expand=e_p,
+                    early_exit=False, raw_state=True,
+                    init_pk=None if state is None else state[0],
+                    init_d=None if state is None else state[1])
+                ref = _eager_loop(packed, q8, qn, e_ids, e_d, ef, True, mi_p,
+                                 e_p, early_exit=False,
+                                 init=None if ref is None else ref[:2])
+                assert all(torch.equal(a, b) for a, b in zip(state[:2],
+                                                             ref[:2]))
+            return
+        ids, d, it = tpacked.beam_search_layer_packed_duo(
+            packed, q8, qn, e_ids, e_d, ef, True, 6, expand=2, ways=2)
+        h = q8.shape[0] // 2
+        for s in (slice(0, h), slice(h, None)):
+            r_pk, r_d, r_it = _eager_loop(packed, q8[s], qn[s], e_ids[s],
+                                         e_d[s], ef, True, 6, 2,
+                                         early_exit=False)
+            assert torch.equal(ids[s], r_pk >> 1) and torch.equal(d[s], r_d)
+        assert it == 6
+
+    @staticmethod
+    def _edge_batch(case):
+        """(beam_pk, beam_d, cand_ids, cand_d, expand) of one edge case,
+        ef not a power of two, C neither."""
+        inf = float("inf")
+        ef, c = 6, 5
+        ids = torch.tensor([[10, 11, 12, 13, -1, -1]], dtype=torch.int32)
+        flags = torch.tensor([[1, 0, 1, 0, 1, 1]], dtype=torch.int32)
+        beam_d = torch.tensor([[1.0, 2.0, 3.0, 4.0, inf, inf]])
+        cand = torch.tensor([[20, 21, 22, 23, 24]], dtype=torch.int32)
+        cand_d = torch.tensor([[2.5, 0.5, 9.0, 3.5, 1.5]])
+        if case == "all_empty":
+            cand = torch.full((1, c), -1, dtype=torch.int32)
+            cand_d = torch.full((1, c), inf)
+        elif case == "repeats":  # the first of an id keeps its distance
+            cand = torch.tensor([[20, 21, 20, 21, 20]], dtype=torch.int32)
+            cand_d = torch.tensor([[2.5, 0.5, 0.1, 0.2, 0.3]])
+        elif case == "in_beam":
+            cand = torch.tensor([[11, 10, 20, 13, 12]], dtype=torch.int32)
+        elif case == "ties":
+            cand_d = torch.tensor([[2.0, 2.0, 1.0, 2.0, 9.0]])
+        elif case == "expanded":
+            flags = torch.ones_like(flags)
+            cand = torch.tensor([[10, 11, -1, 13, 12]], dtype=torch.int32)
+        beam_pk = torch.where(ids < 0, -1, ids * 2 + flags)
+        assert beam_pk.shape == (1, ef) and cand.shape == (1, c)
+        return beam_pk, beam_d, cand, cand_d, 3
+
+    @pytest.mark.parametrize("case", ["all_empty", "repeats", "in_beam",
+                                      "ties", "expanded", "plain"])
+    def test_edge_rows(self, case):
+        """Against a direct reading of the rules: the beam's entries and
+        the fresh candidates (id >= 0, not in the beam, first of its id),
+        the best ef ascending (ties: as a set, the order is the network's);
+        then the first E unexpanded entries selected in beam order."""
+        from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import (
+            beam_update, beam_update_plain,
+        )
+
+        beam_pk, beam_d, cand, cand_d, e = self._edge_batch(case)
+        ef = beam_pk.shape[1]
+        pk0, d0, none = beam_update(beam_pk, beam_d, cand, cand_d, expand=e,
+                                    select_next=False)
+        assert none is None
+        entries = [(d, p) for d, p in zip(beam_d[0].tolist(),
+                                          beam_pk[0].tolist()) if p >= 0]
+        seen = {p >> 1 for _, p in entries}
+        for i, d in zip(cand[0].tolist(), cand_d[0].tolist()):
+            if i >= 0 and i not in seen:
+                entries.append((d, 2 * i))
+                seen.add(i)
+        entries = sorted(entries, key=lambda t: t[0])[:ef]
+        entries += [(float("inf"), -1)] * (ef - len(entries))
+        assert d0[0].tolist() == [d for d, _ in entries]
+        if case == "ties":
+            assert sorted(zip(d0[0].tolist(), pk0[0].tolist())) \
+                == sorted(entries)
+        else:
+            assert pk0[0].tolist() == [p for _, p in entries]
+        pk1, d1, nodes = beam_update_plain(beam_pk, beam_d, cand, cand_d,
+                                           expand=e)
+        assert torch.equal(d1, d0)
+        unexp = [i for i, p in enumerate(pk0[0].tolist())
+                 if p >= 0 and not p & 1][:e]
+        want = pk0.clone()
+        want[0, unexp] |= 1
+        assert torch.equal(pk1, want)
+        assert nodes[0].tolist() == ([int(pk0[0, i]) >> 1 for i in unexp]
+                                     + [-1] * (e - len(unexp)))
+        if case == "expanded":
+            assert nodes[0].tolist() == [-1] * e
+        # the selection alone: the same nodes, the distances untouched
+        pk2, d2, nodes2 = beam_update(pk0, d0, expand=e)
+        assert torch.equal(pk2, pk1) and d2 is d0
+        assert torch.equal(nodes2, nodes)
+
+    @pytest.mark.parametrize("bad", ["pk_dtype", "d_dtype", "cand_dtype",
+                                     "shape", "cand_rows", "device",
+                                     "too_wide", "no_select", "expand"])
+    def test_wrapper_raises(self, bad):
+        from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import beam_update
+
+        pk = torch.zeros((4, 8), dtype=torch.int32)
+        d = torch.zeros((4, 8))
+        ci = torch.zeros((4, 6), dtype=torch.int32)
+        cd = torch.zeros((4, 6))
+        kw = dict(expand=2)
+        err = ValueError
+        if bad == "pk_dtype":
+            pk, err = pk.long(), TypeError
+        elif bad == "d_dtype":
+            d, err = d.double(), TypeError
+        elif bad == "cand_dtype":
+            cd, err = cd.half(), TypeError
+        elif bad == "shape":
+            d = d[:, :7]
+        elif bad == "cand_rows":
+            ci, cd = ci[:3], cd[:3]
+        elif bad == "device":
+            ci = ci.to("meta")
+        elif bad == "too_wide":
+            ci = torch.zeros((4, 4097), dtype=torch.int32)
+            cd = torch.zeros((4, 4097))
+        elif bad == "no_select":
+            ci = cd = None
+            kw["select_next"] = False
+        elif bad == "expand":
+            kw["expand"] = 0
+        with pytest.raises(err):
+            beam_update(pk, d, ci, cd, **kw)

@@ -81,6 +81,11 @@ EXCLUDED = {
         "an import JAX's search.py uses for its seed top-k; the port's "
         "search.py takes torch.topk there",
         {("name", "models/search.py", "bitonic_sort")}),
+    "packed.py's merge_into_beam": (
+        "an import JAX's packed.py uses in its beam step; the port's beam "
+        "step merges in K4 (ops/kernels/beam_update.py, whose plain version "
+        "calls ops/sortmerge.py::merge_into_beam)",
+        {("name", "models/packed.py", "merge_into_beam")}),
     "HIGHEST and precision=": (
         "the port's f32 products are always exact f32 with TF32 off "
         "(`require_full_f32_matmul`): there is no precision to choose",
