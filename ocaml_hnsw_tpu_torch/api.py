@@ -195,20 +195,23 @@ class Index:
         st = self._require_init()
         if new_max_elements < st.host_n:
             raise ValueError("cannot shrink below current element count")
-        old = st.graph
-        new_state = BuildState(st.config, new_max_elements,
-                               round_size=st.round_size, device=self.device)
-        grow = new_state.graph.n_cap - old.n_cap
-        if grow < 0:
-            raise ValueError("resize would shrink padded capacity")
-        t_grow = new_state.graph.t_cap - old.t_cap
-        if t_grow < 0:
-            raise ValueError("resize would shrink the upper arena")
-        new_state.graph = None  # free the empty graph before padding
-        graph = grow_graph(old, grow, t_grow, max(new_state.l_max, old.l_max))
-        new_state.rng = st.rng  # continue the level-sampling stream
-        new_state.l_max = graph.l_max
-        new_state.adopt_graph(graph)
+        with annotate("hnsw.api.resize"):
+            old = st.graph
+            new_state = BuildState(st.config, new_max_elements,
+                                   round_size=st.round_size,
+                                   device=self.device)
+            grow = new_state.graph.n_cap - old.n_cap
+            if grow < 0:
+                raise ValueError("resize would shrink padded capacity")
+            t_grow = new_state.graph.t_cap - old.t_cap
+            if t_grow < 0:
+                raise ValueError("resize would shrink the upper arena")
+            new_state.graph = None  # free the empty graph before padding
+            graph = grow_graph(old, grow, t_grow,
+                               max(new_state.l_max, old.l_max))
+            new_state.rng = st.rng  # continue the level-sampling stream
+            new_state.l_max = graph.l_max
+            new_state.adopt_graph(graph)
         self._state = new_state
         self._seeds = None
         self._packed = None

@@ -464,61 +464,66 @@ def insert_round(
     lv = _upload(lv_host, dev)
     cs = torch.clamp(lv, max=max_level)
 
-    # ---- place vectors / norms / levels (the slots are unoccupied)
-    q = new_vecs.float()
-    qn = query_norms(q, metric)
-    qrows, qscales, qnorms_store = quantize_rows(q, storage)
-    vectors, scales, norms = graph.vectors, graph.scales, graph.norms
-    vectors[pidx] = torch.where(valid[:, None], qrows, vectors[pidx])
-    scales[pidx] = torch.where(valid, qscales, scales[pidx])
-    norms_store = qnorms_store if needs_norms \
-        else torch.zeros_like(qnorms_store)
-    norms[pidx] = torch.where(valid, norms_store, norms[pidx])
-    graph.levels[pidx] = torch.where(valid, lv, -1)
+    with annotate("hnsw.build.place"):
+        # place vectors / norms / levels (the slots are unoccupied), then
+        # allocate the arena: a level-L point owns L consecutive rows from
+        # up_base (exclusive prefix sum over the round)
+        q = new_vecs.float()
+        qn = query_norms(q, metric)
+        qrows, qscales, qnorms_store = quantize_rows(q, storage)
+        vectors, scales, norms = graph.vectors, graph.scales, graph.norms
+        vectors[pidx] = torch.where(valid[:, None], qrows, vectors[pidx])
+        scales[pidx] = torch.where(valid, qscales, scales[pidx])
+        norms_store = qnorms_store if needs_norms \
+            else torch.zeros_like(qnorms_store)
+        norms[pidx] = torch.where(valid, norms_store, norms[pidx])
+        graph.levels[pidx] = torch.where(valid, lv, -1)
 
-    # ---- arena allocation: a level-L point owns L consecutive rows from
-    # up_base (exclusive prefix sum over the round)
-    rows_needed = torch.where(valid, lv, 0)
-    base = graph.up_n + torch.cumsum(rows_needed, 0, dtype=torch.int32) \
-        - rows_needed
-    graph.up_base[pidx] = torch.where(valid & (lv >= 1), base, -1)
-    graph.up_n = graph.up_n + int(np.where(valid_host, lv_host, 0).sum())
+        rows_needed = torch.where(valid, lv, 0)
+        base = graph.up_n + torch.cumsum(rows_needed, 0, dtype=torch.int32) \
+            - rows_needed
+        graph.up_base[pidx] = torch.where(valid & (lv >= 1), base, -1)
+        graph.up_n = graph.up_n + int(np.where(valid_host, lv_host, 0).sum())
 
-    # ---- seed scan over the pre-round bank (layer<=1 entries)
-    s_ids = s_d = None
-    if have_seeds:
-        u_cap = bank.ids.shape[0]
-        # bf16 operands, exact products, f32 sums (TF32 off)
-        dot = torch.matmul(q.to(torch.bfloat16).float(), bank.vecs.float().T)
-        mm = get_metric(metric).matmul_score
-        if mm is not None:
-            scores = mm(dot, bank.norms[None, :])
-        else:
-            scores = get_metric(metric).pair_dist(bank.vecs.float()[None], q)
-        del dot
-        live = torch.arange(u_cap, device=dev) < bank.n
-        scores = torch.where(live[None, :], scores, INF)
-        # rank by bf16 scores (winners re-scored exactly below)
-        ii = torch.topk(scores.to(torch.bfloat16), seed_e, dim=1,
-                        largest=False).indices
-        del scores
-        s_ids = torch.where(live[ii], bank.ids.clamp_min(0)[ii], -1)
-        s_d = dists_to_ids(vectors, scales, norms, q, qn, s_ids, metric)
+    with annotate("hnsw.build.entry"):
+        # ---- seed scan over the pre-round bank (layer<=1 entries)
+        s_ids = s_d = None
+        if have_seeds:
+            u_cap = bank.ids.shape[0]
+            # bf16 operands, exact products, f32 sums (TF32 off)
+            dot = torch.matmul(q.to(torch.bfloat16).float(),
+                               bank.vecs.float().T)
+            mm = get_metric(metric).matmul_score
+            if mm is not None:
+                scores = mm(dot, bank.norms[None, :])
+            else:
+                scores = get_metric(metric).pair_dist(
+                    bank.vecs.float()[None], q)
+            del dot
+            live = torch.arange(u_cap, device=dev) < bank.n
+            scores = torch.where(live[None, :], scores, INF)
+            # rank by bf16 scores (winners re-scored exactly below)
+            ii = torch.topk(scores.to(torch.bfloat16), seed_e, dim=1,
+                            largest=False).indices
+            del scores
+            s_ids = torch.where(live[ii], bank.ids.clamp_min(0)[ii], -1)
+            s_d = dists_to_ids(vectors, scales, norms, q, qn, s_ids, metric)
 
-    # ---- greedy descent, for the levels above each point's first connect
-    # layer (points entering by the seed scan skip it)
-    cur = graph.entry.expand(r).to(torch.int32)
-    cur_d = dists_to_ids(vectors, scales, norms, q, qn, cur[:, None],
-                         metric)[:, 0]
-    need_host = (cs_host >= 2) | (not have_seeds)
-    need = (cs >= 2) | (not have_seeds)
-    for li in range(max_level, 0, -1):
-        if not (valid_host & (li > cs_host) & need_host).any():
-            continue
-        view = UpperView(table=graph.adj_up, up_base=graph.up_base,
-                         levels=graph.levels, level=li)
-        cur, cur_d = _greedy_level(vectors, scales, norms, view, q, qn, cur,
-                                   cur_d, valid & (li > cs) & need, metric)
+        # ---- greedy descent, for the levels above each point's first
+        # connect layer (points entering by the seed scan skip it)
+        cur = graph.entry.expand(r).to(torch.int32)
+        cur_d = dists_to_ids(vectors, scales, norms, q, qn, cur[:, None],
+                             metric)[:, 0]
+        need_host = (cs_host >= 2) | (not have_seeds)
+        need = (cs >= 2) | (not have_seeds)
+        for li in range(max_level, 0, -1):
+            if not (valid_host & (li > cs_host) & need_host).any():
+                continue
+            view = UpperView(table=graph.adj_up, up_base=graph.up_base,
+                             levels=graph.levels, level=li)
+            cur, cur_d = _greedy_level(vectors, scales, norms, view, q, qn,
+                                       cur, cur_d, valid & (li > cs) & need,
+                                       metric)
 
     def first_entries(cur_v, cur_dv, sids_v, sdv, width, at_seed_level):
         """Entry block for a point's first connect layer: the descent
@@ -581,97 +586,105 @@ def insert_round(
     # ---- upper-level connect: levels round_top..2 at the narrow width,
     # then level 1 at its own (a level no point reaches changes nothing)
     round_top = int(cs_host[valid_host].max()) if count else 0
-    for level in range(round_top, 1, -1):
-        up_stage(level, upper_round_width(r, m, 2))
-    if round_top >= 1:
-        up_stage(1, upper_round_width(r, m, 1))
+    for level in range(round_top, 0, -1):
+        with annotate("hnsw.build.upper"):
+            up_stage(level, upper_round_width(r, m, min(level, 2)))
 
-    # ---- level 0: full-width connect for every valid point
-    seeding = (cs == 0)[:, None]
-    f_ids, f_d = first_entries(cur, cur_d, s_ids, s_d, efc_upper, True)
-    entry_ids = torch.where(seeding, f_ids, ep_ids)
-    entry_d = torch.where(seeding, f_d, ep_d)
-    entry_ids = torch.where(valid[:, None], entry_ids, -1)
-    entry_d = torch.where(valid[:, None], entry_d, INF)
-    adj0 = graph.adj0
-    if packed is not None:
-        # packed construction beam (K1 per iteration); the W set is then
-        # exactly re-scored (K2) and re-sorted so selection and apply_edges
-        # see true f32 distances
-        from ocaml_hnsw_tpu_torch.models.packed import (
-            beam_search_layer_packed, quantize_queries,
-        )
+    with annotate("hnsw.build.beam"):
+        # ---- level 0: full-width connect for every valid point
+        seeding = (cs == 0)[:, None]
+        f_ids, f_d = first_entries(cur, cur_d, s_ids, s_d, efc_upper, True)
+        entry_ids = torch.where(seeding, f_ids, ep_ids)
+        entry_d = torch.where(seeding, f_d, ep_d)
+        entry_ids = torch.where(valid[:, None], entry_ids, -1)
+        entry_d = torch.where(valid[:, None], entry_d, INF)
+        adj0 = graph.adj0
+        if packed is not None:
+            # packed construction beam (K1 per iteration); the W set is
+            # then exactly re-scored (K2) and re-sorted so selection and
+            # apply_edges see true f32 distances
+            from ocaml_hnsw_tpu_torch.models.packed import (
+                beam_search_layer_packed, quantize_queries,
+            )
 
-        q8 = quantize_queries(q, packed.scale)
-        if packed.d_pad > q8.shape[1]:
-            q8 = torch.nn.functional.pad(q8, (0, packed.d_pad - q8.shape[1]))
-        mi_eff = build_mi if build_mi is not None else 2 * efc // build_expand
-        w_ids, _, _ = beam_search_layer_packed(
-            packed, q8, qn, entry_ids, entry_d, efc, needs_norms=needs_norms,
-            max_iters=mi_eff, expand=build_expand)
-        w_d = dists_to_ids(vectors, scales, norms, q, qn, w_ids, metric)
-        p2 = next_pow2(efc)
-        w_d, (w_ids,) = bitonic_sort(
-            torch.nn.functional.pad(w_d, (0, p2 - efc), value=INF),
-            [torch.nn.functional.pad(w_ids, (0, p2 - efc), value=-1)])
-        w_d, w_ids = w_d[:, :efc], w_ids[:, :efc]
-    else:
-        w_ids, w_d, _ = beam_search_layer(
-            vectors, scales, norms, adj0, q, qn, entry_ids, entry_d, efc,
-            metric, expand=build_expand, visited_bits=0, max_iters=build_mi,
-            compact_k=build_ck)
-    if extend:
-        c_ids, c_d = extend_candidates(vectors, scales, norms, adj0, q, qn,
-                                       w_ids, w_d, efc, metric)
-    else:
-        c_ids, c_d = w_ids, w_d
-    sel_ids, sel_d = select_neighbors(
-        vectors, scales, norms, c_ids, c_d, m, metric, keep_pruned,
-        heuristic=heuristic, scan_limit=select_scan)
-    if packed is not None:
-        from ocaml_hnsw_tpu_torch.models.packed import (
-            quantize_payload_rows, refresh_payload_rows,
-        )
+            q8 = quantize_queries(q, packed.scale)
+            if packed.d_pad > q8.shape[1]:
+                q8 = torch.nn.functional.pad(
+                    q8, (0, packed.d_pad - q8.shape[1]))
+            mi_eff = build_mi if build_mi is not None \
+                else 2 * efc // build_expand
+            w_ids, _, _ = beam_search_layer_packed(
+                packed, q8, qn, entry_ids, entry_d, efc,
+                needs_norms=needs_norms, max_iters=mi_eff,
+                expand=build_expand)
+            w_d = dists_to_ids(vectors, scales, norms, q, qn, w_ids, metric)
+            p2 = next_pow2(efc)
+            w_d, (w_ids,) = bitonic_sort(
+                torch.nn.functional.pad(w_d, (0, p2 - efc), value=INF),
+                [torch.nn.functional.pad(w_ids, (0, p2 - efc), value=-1)])
+            w_d, w_ids = w_d[:, :efc], w_ids[:, :efc]
+        else:
+            w_ids, w_d, _ = beam_search_layer(
+                vectors, scales, norms, adj0, q, qn, entry_ids, entry_d, efc,
+                metric, expand=build_expand, visited_bits=0,
+                max_iters=build_mi, compact_k=build_ck)
 
-        # the round's stored rows on the payload grid, as pack_graph
-        # rounds them
-        own = gather_dequant(vectors, scales, pidx[:, None])[:, 0]
-        y8q, y8n = quantize_payload_rows(own, packed.scale)
-        _, (dst, ids_new, d_new, pay8, nrm8) = apply_edges(
-            adj0, vectors, scales, norms, p_ids, sel_ids, sel_d, valid,
-            m_max0, rev_cap, metric, keep_pruned, heuristic=heuristic,
-            pack_dist=packed.dist,
-            packed_ctx=(packed.pay, packed.meta, packed.scale, y8q, y8n,
-                        start))
-        packed.pay[dst] = pay8
-        packed.meta[dst] = torch.cat([ids_new, nrm8], dim=1)
-        packed.dist[dst] = d_new
-        # the R forward rows, the classic way (their neighbours are
-        # arbitrary graph nodes)
-        refresh_payload_rows(packed, vectors, scales, adj0,
-                             torch.where(valid, p_ids, sink0), metric=metric)
-    else:
-        apply_edges(adj0, vectors, scales, norms, p_ids, sel_ids, sel_d,
-                    valid, m_max0, rev_cap, metric, keep_pruned,
-                    heuristic=heuristic)
+    with annotate("hnsw.build.select"):
+        if extend:
+            c_ids, c_d = extend_candidates(vectors, scales, norms, adj0, q, qn,
+                                           w_ids, w_d, efc, metric)
+        else:
+            c_ids, c_d = w_ids, w_d
+        sel_ids, sel_d = select_neighbors(
+            vectors, scales, norms, c_ids, c_d, m, metric, keep_pruned,
+            heuristic=heuristic, scan_limit=select_scan)
 
-    # ---- entry point / max level (first max ⇒ sequential tie order)
-    lv_valid = np.where(valid_host, lv_host, -1)
-    best = int(lv_valid.max()) if r else -1
-    if best > max_level:
-        graph.entry.fill_(start + int(np.argmax(lv_valid)))
-        graph.max_level.fill_(best)
-        max_level = best
-    graph.n += count
+    with annotate("hnsw.build.edges"):
+        if packed is not None:
+            from ocaml_hnsw_tpu_torch.models.packed import (
+                quantize_payload_rows, refresh_payload_rows,
+            )
 
-    # ---- append this round's new upper nodes to the seed bank
-    if bank is not None:
-        up = np.nonzero(valid_host & (lv_host >= 1))[0]
-        if up.size:
-            rows = _upload(up.astype(np.int64), dev)
-            deq = (qrows[rows].float() * qscales[rows][:, None]).to(
-                torch.bfloat16)
-            bank.append(p_ids[rows], deq, norms_store[rows])
+            # the round's stored rows on the payload grid, as pack_graph
+            # rounds them
+            own = gather_dequant(vectors, scales, pidx[:, None])[:, 0]
+            y8q, y8n = quantize_payload_rows(own, packed.scale)
+            _, (dst, ids_new, d_new, pay8, nrm8) = apply_edges(
+                adj0, vectors, scales, norms, p_ids, sel_ids, sel_d, valid,
+                m_max0, rev_cap, metric, keep_pruned, heuristic=heuristic,
+                pack_dist=packed.dist,
+                packed_ctx=(packed.pay, packed.meta, packed.scale, y8q, y8n,
+                            start))
+            packed.pay[dst] = pay8
+            packed.meta[dst] = torch.cat([ids_new, nrm8], dim=1)
+            packed.dist[dst] = d_new
+            # the R forward rows, the classic way (their neighbours are
+            # arbitrary graph nodes)
+            refresh_payload_rows(packed, vectors, scales, adj0,
+                                 torch.where(valid, p_ids, sink0),
+                                 metric=metric)
+        else:
+            apply_edges(adj0, vectors, scales, norms, p_ids, sel_ids, sel_d,
+                        valid, m_max0, rev_cap, metric, keep_pruned,
+                        heuristic=heuristic)
+
+        # ---- entry point / max level (first max ⇒ sequential tie order)
+        lv_valid = np.where(valid_host, lv_host, -1)
+        best = int(lv_valid.max()) if r else -1
+        if best > max_level:
+            graph.entry.fill_(start + int(np.argmax(lv_valid)))
+            graph.max_level.fill_(best)
+            max_level = best
+        graph.n += count
+
+        # ---- append this round's new upper nodes to the seed bank
+        if bank is not None:
+            up = np.nonzero(valid_host & (lv_host >= 1))[0]
+            if up.size:
+                rows = _upload(up.astype(np.int64), dev)
+                deq = (qrows[rows].float() * qscales[rows][:, None]).to(
+                    torch.bfloat16)
+                bank.append(p_ids[rows], deq, norms_store[rows])
     return max_level
 
 
@@ -1000,12 +1013,13 @@ class BuildState:
         kw = self._round_kwargs()
         ar = torch.arange(rs, device=self.device)
         for d, count in rounds:
-            vecs = data[(d + ar).clamp(max=n_new - 1)]
-            lv = np.zeros(rs, np.int32)
-            lv[:count] = levels[d:d + count]
-            self.host_max_level = insert_round(
-                self.graph, vecs, lv, self.host_n, count,
-                self.host_max_level, self.bank, self.packed, **kw)
+            with annotate("hnsw.build.round"):
+                vecs = data[(d + ar).clamp(max=n_new - 1)]
+                lv = np.zeros(rs, np.int32)
+                lv[:count] = levels[d:d + count]
+                self.host_max_level = insert_round(
+                    self.graph, vecs, lv, self.host_n, count,
+                    self.host_max_level, self.bank, self.packed, **kw)
             self.host_n += count
         if rounds:
             tail = levels[rounds[0][0]:]

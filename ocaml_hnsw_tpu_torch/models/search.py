@@ -58,7 +58,10 @@ def _greedy_level(vectors, scales, norms, adj, q, qn, cur, cur_d, enabled,
                   metric):
     """One layer of greedy ef=1 descent for B queries (Alg 5 upper loop)."""
     active = enabled
-    while bool(torch.any(active)):
+    while True:
+        with annotate("hnsw.sync.greedy"):
+            if not bool(torch.any(active)):
+                break
         nbrs = adj_take(adj, cur.clamp_min(0))  # [B, deg]
         nbrs = torch.where(active[:, None], nbrs, -1)
         d = dists_to_ids(vectors, scales, norms, q, qn, nbrs, metric)
@@ -127,8 +130,10 @@ def beam_search_layer(
     while max_iters is None or it < max_iters:
         unexp = (beam_pk & 1) == 0
         live = torch.any(unexp)
-        if it % CONVERGE_CHECK == 0 and not bool(live):
-            break
+        if it % CONVERGE_CHECK == 0:
+            with annotate("hnsw.sync.converge"):
+                if not bool(live):
+                    break
         iters += live.to(torch.int32)
         # 1. the E nearest unexpanded members (beam sorted ⇒ cumsum mask)
         slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
@@ -314,23 +319,27 @@ def knn_search(
         max_iters = max(64, (8 * ef) // max(1, expand))
     if seeds is not None and get_metric(metric).matmul_score is None:
         seeds = None  # registry metric without a matmul form: descent
-    q = preprocess_queries(queries, metric)
-    qn = query_norms(q, metric)
-    if seeds is not None:
-        entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e, metric)
-    else:
-        cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
-        entry_ids, entry_d = cur[:, None], cur_d[:, None]
-    ids, d, _ = beam_search_layer(
-        graph.vectors, graph.scales, graph.norms, graph.adj0, q, qn,
-        entry_ids, entry_d, ef, metric, max_iters, expand=expand,
-        visited_bits=visited_bits, compact_k=compact_k,
-    )
-    # tombstone filter, then the final top-k (masking reorders the beam)
-    dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
-    d = torch.where(dead, INF, d)
-    out_d, out_ids = topk_ascending(d, torch.where(dead, -1, ids), k)
-    out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
+    with annotate("hnsw.classic.seed"):
+        q = preprocess_queries(queries, metric)
+        qn = query_norms(q, metric)
+        if seeds is not None:
+            entry_ids, entry_d = seed_entries(graph, seeds, q, qn, seed_e,
+                                              metric)
+        else:
+            cur, cur_d = descend(graph, q, qn, metric, stop_level=0)
+            entry_ids, entry_d = cur[:, None], cur_d[:, None]
+    with annotate("hnsw.classic.beam"):
+        ids, d, _ = beam_search_layer(
+            graph.vectors, graph.scales, graph.norms, graph.adj0, q, qn,
+            entry_ids, entry_d, ef, metric, max_iters, expand=expand,
+            visited_bits=visited_bits, compact_k=compact_k,
+        )
+    with annotate("hnsw.classic.final"):
+        # tombstone filter, then the final top-k (masking reorders the beam)
+        dead = graph.deleted[ids.clamp_min(0).long()] | (ids < 0)
+        d = torch.where(dead, INF, d)
+        out_d, out_ids = topk_ascending(d, torch.where(dead, -1, ids), k)
+        out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
     return out_ids, out_d
 
 
