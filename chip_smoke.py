@@ -51,7 +51,9 @@ their results against exact ground truth computed on the card:
     python3 chip_smoke.py --phase-g       # build, the main path's data,
                                           # then phase G alone, stop
     python3 chip_smoke.py --beam-update   # build, K4's checks, then K4 on
-                                          # the main path's queries, stop
+                                          # the main path's queries, the
+                                          # classic step's checks and its
+                                          # laion-shaped loops, stop
     python3 chip_smoke.py --profile-dir DIR  # also write the profiled
                                              # windows' op tables to DIR
 
@@ -91,6 +93,20 @@ repeated or already in the beam, beams fully expanded or empty).  With
 `--beam-update`, the main path's 8192-query call must launch it 2 ×
 max_iters + 2 times and answer exactly as the eager beam step it replaced;
 it is timed on that call's own inputs, and the two calls in turns.
+
+K4's classic step (`beam_step_classic`: the classic beam loop's merge,
+select, adjacency expansion, dedup and compaction) is held against its
+plain version bit for bit (with the previous step's block and without it;
+the live flag too) at laion1m.stream's shapes (`K4C_SHAPES`: the round's
+level-0 beam, the 4096-query classic batch, an upper level's beam over the
+arena; timed cold) and on edge shapes and rows (`K4C_EDGE_SHAPES`; blocks
+all -1 or repeated, a beam whose every adjacency id is in it, beams fully
+expanded or empty, a batch with nothing left to expand).  With
+`--beam-update`, `beam_search_layer` at those three shapes on a 200k x 768
+cosine random graph must launch the step once an iteration (once more on
+the step that finds every beam expanded), K2 once an iteration and K4's
+merge once after a capped loop, run no bitonic stage but the entries'
+sort, and answer exactly as the eager loop it replaced.
 
 K3 (`scan_topk`, the flat scan and its top-k select in one kernel) is held
 against its plain version on edge cases (B and N no multiple of a tile, D =
@@ -148,9 +164,11 @@ from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
 from ocaml_hnsw_tpu_torch.models import flat as flat_mod
 from ocaml_hnsw_tpu_torch.models import packed as packed_mod
 from ocaml_hnsw_tpu_torch.models import search as search_mod
+from ocaml_hnsw_tpu_torch.models.graph import UpperView
 from ocaml_hnsw_tpu_torch.ops.kernels import _lib
 from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import (
-    beam_update, beam_update_plain,
+    beam_step_classic, beam_step_classic_plain, beam_update,
+    beam_update_plain, classic_width,
 )
 from ocaml_hnsw_tpu_torch.ops.kernels import gather_dist as k2_mod
 from ocaml_hnsw_tpu_torch.ops.kernels import payload_score as k1_mod
@@ -165,6 +183,7 @@ from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import (
     scan_topk, scan_topk_plain,
 )
 from ocaml_hnsw_tpu_torch.ops import metrics as metrics_mod
+from ocaml_hnsw_tpu_torch.ops import sortmerge as sortmerge_mod
 from ocaml_hnsw_tpu_torch.ops.quantize import quantize_rows, storage_dtype
 from ocaml_hnsw_tpu_torch.parallel import ShardedIndex
 from ocaml_hnsw_tpu_torch.parallel.sharded import make_mesh
@@ -276,6 +295,30 @@ K4_EDGE_SHAPES = (("ef=100 C=64", 777, 100, 64, 2),
                   ("ef=64 C=300 (block)", 65, 64, 300, 2),
                   ("ef=4096 C=64 (widest beam)", 3, 4096, 64, 4),
                   ("ef=1000 C=4000 (widest run)", 2, 1000, 4000, 2))
+
+#: K4's classic step (beam_step_classic) at laion1m.stream's shapes: label,
+#: B, ef, E, deg, compact_k, upper (an UpperView).  The insert round's
+#: level-0 beam (ef_construction 200, compact_k 96: a 512-wide merge, the
+#: block path), the classic 4096-query batch (ef 128: the warp path), an
+#: upper level's beam (ef 32, M = 16 ids a node, no compaction)
+K4C_SHAPES = (("round level 0", 2048, 200, 4, 32, 96, False),
+              ("query", 4096, 128, 4, 32, 96, False),
+              ("round upper", 2048, 32, 4, 16, None, True))
+#: classic-step edge shapes: B no multiple of a block's rows, ef, C and deg
+#: no powers of two, a merge inside one register, over 256 slots (the block
+#: path at a narrow beam), the widest beam and run it takes
+K4C_EDGE_SHAPES = (
+    ("ef=100 E=3 deg=7", 777, 100, 3, 7, None, False),
+    ("ef=12 E=5 deg=5 ck=9", 33, 12, 5, 5, 9, True),
+    ("ef=10 E=1 deg=16 (width 32)", 9, 10, 1, 16, None, False),
+    ("ef=3 E=2 deg=2", 5, 3, 2, 2, None, True),
+    ("ef=64 E=8 deg=40 ck=96 (320 slots)", 65, 64, 8, 40, 96, False),
+    ("ef=4096 E=4 deg=32 ck=96 (widest beam)", 3, 4096, 4, 32, 96, True),
+    ("ef=1000 E=64 deg=64 ck=4000 (widest run)", 2, 1000, 64, 64, 4000,
+     False))
+#: the laion-shaped loops' random graph: rows (768-d cosine) and the
+#: entries a query starts from (the seed scan's seed_e)
+K4C_N, K4C_DIM, K4C_ENTRIES = 200_000, 768, 16
 
 #: NVIDIA H100 SXM data sheet: memory rate, dense int8 and f32 (no tensor
 #: core) peaks
@@ -583,6 +626,7 @@ def reset_launches() -> None:
         counts.update(dict.fromkeys(counts, 0))
     packed_score.launches = 0
     beam_update.launches = 0
+    beam_step_classic.launches = 0
     scan_topk.launches = 0
     for counts in (scan_topk.launches_by_dtype, scan_topk.launches_by_path):
         counts.update(dict.fromkeys(counts, 0))
@@ -600,6 +644,7 @@ def read_launches() -> dict:
     return {"gather_dists": gather_dists.launches,
             "packed_score": packed_score.launches,
             "beam_update": beam_update.launches,
+            "beam_step_classic": beam_step_classic.launches,
             "scan_topk": scan_topk.launches,
             **{f"gather_dists/{p}": n
                for p, n in gather_dists.launches_by_path.items()},
@@ -1513,6 +1558,7 @@ def kernels_only(gen) -> int:
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
     check_k1_edges(gen)
     check_k4_edges(gen, flush)
+    check_k4c_edges(gen, flush)
     check_k3_edges(gen)
     x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
                                    seed=7)).to(DEV)
@@ -1760,6 +1806,232 @@ def phase_k4(smi: str, flush, gen) -> list[dict]:
     say(f"[K4 main] profiled K4 call: {fmt_share(busy)}; device time by "
         f"kernel [name, ms, count]: {json.dumps(busy['top'])} [{smi}]")
     return rows
+
+
+# ------------------------------------------------- K4's classic step
+def k4c_adjacency(pool: int, ef: int, deg: int, upper: bool, gen):
+    """An adjacency over `pool` node ids: a dense [pool, deg] table (~10%
+    -1; the rows of nodes below ef / 2 hold ids below ef only, so a beam of
+    ids 0..ef-1 finds nothing fresh), or the same rows in an upper arena:
+    levels 0-2, level 1 viewed, a third of the nodes at level 0 (the sink
+    row) and a few at level 1 without a row (up_base -1)."""
+    table = gen.integers(0, pool, (pool, deg))
+    low = max(1, ef // 2)
+    table[:low] = gen.integers(0, ef, (low, deg))
+    table[gen.random((pool, deg)) < 0.1] = -1
+    table = table.astype(np.int32)
+    if not upper:
+        return torch.from_numpy(table).to(DEV)
+    levels = gen.integers(0, 3, pool).astype(np.int32)
+    has = (levels >= 1) & (gen.random(pool) > 0.05)
+    up_base = np.full(pool, -1, np.int32)
+    up_base[has] = np.concatenate([[0], np.cumsum(levels[has])[:-1]])
+    arena = np.full((int(levels[has].sum()) + 1, deg), -1, np.int32)
+    for v in np.nonzero(has)[0]:
+        arena[up_base[v]:up_base[v] + levels[v]] = table[v]
+    return UpperView(table=torch.from_numpy(arena).to(DEV),
+                     up_base=torch.from_numpy(up_base).to(DEV),
+                     levels=torch.from_numpy(levels).to(DEV), level=1)
+
+
+def k4c_inputs(b: int, ef: int, e: int, deg: int, compact_k, upper: bool,
+               gen, ties: bool = False, edges: bool = False,
+               converged: bool = False):
+    """K4's beam and block (`k4_inputs`: ~70% expanded, ~30% of the block
+    beam ids, ~15% -1, ids repeated) with the block as wide as the step
+    writes, and `k4c_adjacency` over the same pool.  edges=True: rows
+    cycle through a block all -1, one block id repeated, a beam of ids
+    0..ef-1 all unexpanded with no block (every adjacency id in the beam),
+    a fully expanded beam, an empty beam.  converged=True: every beam fully
+    expanded and no block (the live flag stays 0)."""
+    c = classic_width(e, deg, compact_k)
+    pool = 4 * (ef + c)
+    pk, d, cid, cd = k4_inputs(b, ef, c, gen, ties=ties, edges=edges)
+    if edges and b:
+        kind = torch.arange(b, device=DEV) % 5
+        two = kind == 2
+        pk[two] = torch.arange(ef, dtype=torch.int32, device=DEV) * 2
+        d[two] = torch.sort(d[two].nan_to_num(posinf=1e9), dim=1).values
+        cid[two | (kind == 3)] = -1
+        cd[two | (kind == 3)] = float("inf")
+    if converged:
+        pk = torch.where(pk < 0, -1, pk | 1)
+        cid.fill_(-1)
+        cd.fill_(float("inf"))
+    return pk, d, cid, cd, k4c_adjacency(pool, ef, deg, upper, gen)
+
+
+def k4c_cost(b: int, ef: int, c_in: int, e: int, deg: int, c: int,
+             upper: bool) -> int:
+    """Bytes of one classic step: the beam read and written, the block
+    read, E adjacency rows (and their up_base and levels) read, the next
+    block written."""
+    return b * (ef * 16 + c_in * 8 + e * deg * 4 + (e * 8 if upper else 0)
+                + c * 4)
+
+
+def k4c_case(label: str, args, e: int, compact_k, flush=None,
+             time_it: bool = False) -> dict:
+    """beam_step_classic against its plain version, bit for bit (the beam,
+    the next block and the live flag), with the previous block and
+    without; each CUDA call must launch the kernel."""
+    pk, d, cid, cd, adj = args
+    b, ef = pk.shape
+    deg = (adj if isinstance(adj, torch.Tensor) else adj.table).shape[1]
+    c = classic_width(e, deg, compact_k)
+    for block in ((cid, cd), (None, None)):
+        live = torch.zeros(2, dtype=torch.int32, device=DEV)
+        before = beam_step_classic.launches
+        out = beam_step_classic(pk, d, *block, adj, live[0], expand=e,
+                                compact_k=compact_k)
+        ref = beam_step_classic_plain(pk, d, *block, adj, live[1], expand=e,
+                                      compact_k=compact_k)
+        torch.cuda.synchronize()
+        if beam_step_classic.launches != before + (b > 0):
+            raise AssertionError(f"K4 classic {label}: a CUDA call did not "
+                                 "launch")
+        for name, x, y in zip(("beam_pk", "beam_d", "block"), out, ref):
+            if not bits_equal(x, y):
+                raise AssertionError(f"K4 classic {label} (block "
+                                     f"{'in' if block[0] is not None else 'none'}"
+                                     f"): {name} differs from plain")
+        if b and int(live[0]) != int(live[1]):
+            raise AssertionError(f"K4 classic {label}: live differs")
+    row = dict(case=label, shape=[b, ef, c, e, deg], max_abs_err=0.0)
+    if time_it:
+        live = torch.zeros((), dtype=torch.int32, device=DEV)
+        timed(row, lambda: beam_step_classic(pk, d, cid, cd, adj, live,
+                                             expand=e, compact_k=compact_k),
+              lambda: beam_step_classic_plain(pk, d, cid, cd, adj, live,
+                                              expand=e, compact_k=compact_k),
+              k4c_cost(b, ef, cid.shape[1], e, deg, c,
+                       not isinstance(adj, torch.Tensor)),
+              0, INT8_OPS_PER_S, flush)
+    say(f"[K4 classic] {label} B={b} ef={ef} C={c} E={e} deg={deg}: equal "
+        f"bit for bit (with the block, without; live); {fmt(row)}")
+    return row
+
+
+def check_k4c_edges(gen, flush=None) -> list[dict]:
+    """The classic step at laion1m.stream's shapes (timed cold, L2 flushed)
+    and at edge shapes, with real-valued and tied distances, on rows of
+    edge cases and on a batch with nothing left to expand."""
+    rows = []
+    for label, b, ef, e, deg, ck, upper in K4C_SHAPES + K4C_EDGE_SHAPES:
+        main = (label, b, ef, e, deg, ck, upper) in K4C_SHAPES
+        shape = (b, ef, e, deg, ck, upper)
+        rows.append(k4c_case(f"cold {label}", k4c_inputs(*shape, gen), e, ck,
+                             flush, time_it=main and flush is not None))
+        rows.append(k4c_case(f"{label} ties", k4c_inputs(*shape, gen,
+                                                         ties=True), e, ck))
+        rows.append(k4c_case(f"{label} edge rows", k4c_inputs(
+            *shape, gen, ties=True, edges=True), e, ck))
+        rows.append(k4c_case(f"{label} converged", k4c_inputs(
+            *shape, gen, converged=True), e, ck))
+    rows.append(k4c_case("B=0", k4c_inputs(0, 64, 4, 16, None, False, gen),
+                         4, None))
+    return rows
+
+
+def k4c_graph(gen):
+    """A random 768-d cosine graph of K4C_N rows: unit rows, a dense level-0
+    table of 32 ids a row, an upper arena (a node at level >= l with
+    probability 16^-l) of 16 ids a row among the level-1 nodes."""
+    g = torch.Generator(device=DEV).manual_seed(int(gen.integers(1 << 30)))
+    x = torch.randn((K4C_N, K4C_DIM), device=DEV, generator=g)
+    x = search_mod.normalize_rows(x)
+    adj0 = torch.randint(0, K4C_N, (K4C_N, 32), device=DEV, generator=g,
+                         dtype=torch.int32)
+    levels = np.minimum(gen.geometric(15 / 16, K4C_N) - 1, 3).astype(np.int32)
+    up = np.nonzero(levels >= 1)[0]
+    up_base = np.full(K4C_N, -1, np.int32)
+    up_base[up] = np.concatenate([[0], np.cumsum(levels[up])[:-1]])
+    arena = up[gen.integers(0, up.size, (int(levels[up].sum()) + 1, 16))]
+    arena[-1] = -1
+    view = UpperView(table=torch.from_numpy(arena.astype(np.int32)).to(DEV),
+                     up_base=torch.from_numpy(up_base).to(DEV),
+                     levels=torch.from_numpy(levels).to(DEV), level=1)
+    return x, adj0, view, up
+
+
+def phase_k4c(smi: str, gen) -> None:
+    """The classic loop at laion1m.stream's three shapes on `k4c_graph`:
+    one beam_search_layer call each, with the launches of the step, K2 and
+    K4's merge counted and the bitonic stages run (`sortmerge._stage`: the
+    entries' sort only), the answer against the eager loop's (the plain
+    step and merge in their places) bit for bit, the host-clock time of
+    both in turns, and the kernel call profiled."""
+    x, adj0, view, up = k4c_graph(gen)
+    ones = torch.ones(K4C_N, device=DEV)
+    norms = torch.zeros(K4C_N, device=DEV)  # cosine: unused
+    entry_stages = 10  # bitonic_sort at width 16: 4 * 5 / 2 stages
+    for label, b, ef, e, deg, ck, upper in K4C_SHAPES:
+        max_iters = None if upper else (48 if ef == 200 else 24)
+        pool = up if upper else np.arange(K4C_N)
+        q = search_mod.normalize_rows(torch.from_numpy(gen.standard_normal(
+            (b, K4C_DIM)).astype(np.float32)).to(DEV))
+        e_ids = torch.from_numpy(pool[gen.integers(
+            0, pool.size, (b, K4C_ENTRIES))].astype(np.int32)).to(DEV)
+        e_d = gather_dists(x, ones, q, e_ids, "cosine")
+        qn = torch.zeros(b, device=DEV)
+
+        def call():
+            return search_mod.beam_search_layer(
+                x, ones, norms, view if upper else adj0, q, qn, e_ids, e_d, ef,
+                "cosine", max_iters, expand=e, visited_bits=0, compact_k=ck)
+
+        def eager():
+            real = search_mod.beam_step_classic, search_mod.beam_update
+            search_mod.beam_step_classic = beam_step_classic_plain
+            search_mod.beam_update = beam_update_plain
+            try:
+                return call()
+            finally:
+                search_mod.beam_step_classic, search_mod.beam_update = real
+
+        call()  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        with recording(sortmerge_mod, "_stage") as stages:
+            ids, dist, iters = call()
+            torch.cuda.synchronize()
+        got = read_launches()
+        k4c, k2, k4 = (got["beam_step_classic"], got["gather_dists"],
+                       got["beam_update"])
+        want = ((k2 + 1, 0) if max_iters is None
+                else (max_iters, 1)) if k2 else (-1, -1)
+        if (k4c, k4) != want or (max_iters and k2 != max_iters) \
+                or len(stages) != entry_stages:
+            raise AssertionError(f"K4 classic {label}: {k4c} steps, {k2} K2, "
+                                 f"{k4} merges, {len(stages)} bitonic stages "
+                                 f"(max_iters {max_iters})")
+        require_launches(f"K4 classic {label}", got,
+                         ["beam_step_classic", "gather_dists"])
+        e_ids2, e_d2, e_it = eager()
+        if not (torch.equal(ids, e_ids2) and bits_equal(dist, e_d2)
+                and int(iters) == int(e_it)):
+            raise AssertionError(f"K4 classic {label}: the loop's answer "
+                                 "differs from the eager loop's")
+        times = {"kernel": [], "eager": []}
+        for i in range(3):
+            for side in (("kernel", "eager") if i % 2 == 0
+                         else ("eager", "kernel")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (call if side == "kernel" else eager)()
+                torch.cuda.synchronize()
+                times[side].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        busy = busy_share(call, f"k4c_{label.replace(' ', '_')}")
+        say(f"[K4 classic loop] {label} B={b} ef={ef} E={e} deg={deg} "
+            f"compact_k={ck} max_iters={max_iters}: {int(iters)} iters, "
+            f"launches step {k4c} K2 {k2} merge {k4}, {len(stages)} bitonic "
+            f"stages (the entries'); equal to the eager loop bit for bit; "
+            f"host-clock call, median of 3 in turns: kernel "
+            f"{med['kernel'] * 1e3:.1f} ms, eager {med['eager'] * 1e3:.1f} "
+            f"ms; profiled kernel call: {fmt_share(busy)}; top "
+            f"{json.dumps(busy['top'])} [{smi}]")
+    del x, adj0, view
 
 
 def cold_ids(gen, b: int, k: int, n: int) -> torch.Tensor:
@@ -2041,7 +2313,8 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
                   if tuple(c[5].shape) == (A_RS, COMPACT_K)][-64]
     del calls
     build_launches = read_launches()
-    require_launches("A build", build_launches, ["gather_dists"])
+    require_launches("A build", build_launches,
+                     ["gather_dists", "beam_step_classic"])
     if index._state._packed_build or build_launches["packed_score"]:
         raise AssertionError("phase A: a 10k index took the packed build")
 
@@ -2049,7 +2322,8 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
     reset_launches()
     labels, dists = index.knn_query(queries, **knobs)
     batch_launches = read_launches()
-    require_launches("A query", batch_launches, ["gather_dists"])
+    require_launches("A query", batch_launches,
+                     ["gather_dists", "beam_step_classic"])
     check_result(labels, dists, N_QUERIES, 10)
     rec = recall_of(labels, device_ground_truth(x, q, 10, "l2"))
     times = []
@@ -2074,7 +2348,8 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
     add_busy = busy_share(lambda: loaded.add_items(extra), "A_add",
                           again=False)
     add_launches = read_launches()
-    require_launches("A add after load", add_launches, ["gather_dists"])
+    require_launches("A add after load", add_launches,
+                     ["gather_dists", "beam_step_classic"])
     x_all = torch.cat([x, torch.from_numpy(extra).to(DEV)])
     lab3, d3 = loaded.knn_query(queries, **knobs)
     check_result(lab3, d3, N_QUERIES, 10)
@@ -2123,7 +2398,7 @@ def phase_stream(tag: str, config: str, storage: str, data_dtype: str,
     K2 is held and timed at the phase's query and level-0 build blocks."""
     n_warm = B_N // 2
     need = ["gather_dists", f"gather_dists/{k2_path}",
-            f"gather_dists/{storage}"]
+            f"gather_dists/{storage}", "beam_step_classic"]
     reset_launches()
     with metering(harness_mod.datasets, "clustered_device") as made, \
             metering(build_mod.BuildState, "add") as adds, \
@@ -2597,11 +2872,15 @@ def phase_d3(x: torch.Tensor, data: np.ndarray, queries: np.ndarray,
         f"{D3_N / build_s:.0f} vectors/s, recall@10 {rec_hnsw:.4f} at ef=96;"
         f" FlatIndex (chunked exact scan) recall@10 {rec_flat:.4f}; "
         f"{calls} pair_dist calls on the card, kernel launches "
-        f"{json.dumps(launches)} (a registered metric launches none) [{smi}]")
+        f"{json.dumps(launches)} (a registered metric launches no distance "
+        f"kernel; the classic step scores nothing and serves its beam) "
+        f"[{smi}]")
     if min(rec_hnsw, rec_flat) < D_FLOOR:
         raise AssertionError(f"D3: l1 recall {rec_hnsw} / {rec_flat} < "
                              f"{D_FLOOR}")
-    if calls <= 0 or any(launches.values()):
+    scored = [kern for kern in ("gather_dists", "packed_score", "scan_topk")
+              if launches[kern]]
+    if calls <= 0 or scored:
         raise AssertionError(f"D3: l1 took {calls} registry calls and "
                              f"launches {launches}")
     return dict(l1_build_vps=D3_N / build_s, l1_recall=rec_hnsw,
@@ -2661,7 +2940,8 @@ def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
     reset_launches()
     labels, dists = index.knn_query(queries, **E_CLASSIC)
     classic = read_launches()
-    require_launches("E classic query", classic, ["gather_dists"])
+    require_launches("E classic query", classic,
+                     ["gather_dists", "beam_step_classic"])
     if classic["packed_score"]:
         raise AssertionError("phase E: the classic query launched K1")
     check_result(labels, dists, N_QUERIES, 10)
@@ -2793,6 +3073,8 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
         check_k4_edges(gen, flush)
+        check_k4c_edges(gen, flush)
+        phase_k4c(smi, gen)
         phase_k4(smi, flush, gen)
         say(f"[K4] phase took {time.perf_counter() - t0:.1f} s; "
             "--beam-update: stop here")
@@ -2824,6 +3106,7 @@ def main(argv: list[str]) -> int:
         return 0
     k1_rows = check_k1_edges(gen)
     k4_rows = check_k4_edges(gen, flush)
+    k4c_rows = check_k4c_edges(gen, flush)
     k2_rows = check_k2_edges(x, gen)
     k3_rows = check_k3_edges(gen)
 
@@ -2952,7 +3235,9 @@ def main(argv: list[str]) -> int:
     del flat, qq
 
     for kern, n in launches.items():
-        if n <= 0:
+        # the classic step serves the classic engine and the incremental
+        # rounds: phases A, B, B8 and E require it; the main path has none
+        if n <= 0 and kern != "beam_step_classic":
             raise AssertionError(f"{kern} was not launched on the main path")
 
     # ---- phase F: the packed options on main's graph (before C grows it)
@@ -3063,6 +3348,18 @@ def main(argv: list[str]) -> int:
              shapes=[{"case": r["case"], "shape": r["shape"],
                       **{s: r[s] for s in shapes}}
                      for r in k4_rows if "ms" in r]),
+        dict(name="beam_step_classic", route="cuda",
+             source="ocaml_hnsw_tpu_torch/csrc/beam_update.cu",
+             replaces=None, replaces_note=K4_REPLACES,
+             launches=launches["beam_step_classic"],
+             launches_per_batch=batch_launches["beam_step_classic"],
+             launches_by_phase={p: c["beam_step_classic"]
+                                for p, c in by_phase.items()},
+             max_abs_err=0.0, **headline(k4c_rows, "cold query"),
+             library_ms=None, library_note=K4_NO_LIBRARY,
+             shapes=[{"case": r["case"], "shape": r["shape"],
+                      **{s: r[s] for s in shapes}}
+                     for r in k4c_rows if "ms" in r]),
         dict(name="gather_dists", route="cuda",
              source="ocaml_hnsw_tpu_torch/csrc/gather_dist.cu",
              replaces="ocaml_hnsw_tpu/ops/pallas/gather_dist.py:65",

@@ -4,7 +4,10 @@ with beam-only, exact-bitset and hashed-bitset dedup and `compact_k`),
 `knn_search`, the seed scan (`SeedIndex`, `build_seed_index`,
 `seed_entries`), greedy descent (`descend`, `_greedy_level`) and query
 preprocessing.  Every candidate block is scored by `dists_to_ids`, i.e. by
-the gather-distance kernel (K2) on the card.
+the gather-distance kernel (K2) on the card.  With beam-only dedup (the
+default) the rest of a beam iteration is one launch on the card: the
+classic step of `ops/kernels/beam_update.py` (merge, select, expand, dedup,
+compact).
 
 The seed scan is one matrix product of the queries against every level>=1
 node's bf16 vector, top-E by bf16 score, then an exact re-score of the E
@@ -35,6 +38,9 @@ from ocaml_hnsw_tpu_torch.ops.bitset import (
 )
 from ocaml_hnsw_tpu_torch.ops.distance import (
     INF, dists_to_ids, gather_dequant, query_norms,
+)
+from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import (
+    beam_step_classic, beam_update, select_unexpanded,
 )
 from ocaml_hnsw_tpu_torch.ops.metrics import get_metric
 from ocaml_hnsw_tpu_torch.ops.sortmerge import (
@@ -124,50 +130,30 @@ def beam_search_layer(
     # beam state packs (id, expanded) into one int32: pk = 2·id + exp
     beam_ids, beam_d = entries_to_beam(entry_ids, entry_d, ef)
     beam_pk = torch.where(beam_ids < 0, -1, beam_ids * 2)
-    ar = torch.arange(1, expand + 1, dtype=torch.int32, device=dev)
+    if beam_only:
+        return _beam_only_loop(vectors, scales, norms, adj, q, qn, beam_pk,
+                               beam_d, metric, max_iters, expand, compact_k)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     it = 0
     while max_iters is None or it < max_iters:
-        unexp = (beam_pk & 1) == 0
-        live = torch.any(unexp)
+        live = torch.any((beam_pk & 1) == 0)
         if it % CONVERGE_CHECK == 0:
             with annotate("hnsw.sync.converge"):
                 if not bool(live):
                     break
         iters += live.to(torch.int32)
-        # 1. the E nearest unexpanded members (beam sorted ⇒ cumsum mask)
-        slot = torch.cumsum(unexp.to(torch.int32), dim=1, dtype=torch.int32)
-        sel_mask = unexp & (slot <= expand)
-        beam_pk = torch.where(sel_mask, beam_pk | 1, beam_pk)
-        oh = sel_mask[:, None, :] & (slot[:, None, :] == ar[None, :, None])
-        pos = torch.argmax(oh.to(torch.uint8), dim=2)  # first hit per e
-        active = torch.any(oh, dim=2)
-        nodes = torch.where(active, torch.gather(beam_pk, 1, pos) >> 1, -1)
+        # 1. the E nearest unexpanded members
+        beam_pk, nodes = select_unexpanded(beam_pk, expand)
         # 2. frontier expansion: adjacency gather
         nbrs = adj_take(adj, nodes.clamp_min(0))  # [B, E, deg]
         nbrs = torch.where((nodes >= 0)[:, :, None], nbrs, -1).reshape(b, -1)
-        # 3. beam-only dedup, or visited filter + mark on the visit index
-        if beam_only:
-            in_beam = torch.any(
-                nbrs[:, :, None] == (beam_pk >> 1)[:, None, :], dim=2)
-            fresh = (nbrs >= 0) & ~in_beam & first_occurrence_mask(nbrs)
-        else:
-            ok = nbrs >= 0
-            nvidx = _visit_idx(nbrs, visited_bits)
-            fresh = (ok & ~bitset_test(visited, nvidx, ok)
-                     & first_occurrence_mask(torch.where(ok, nvidx, -1)))
-            visited = bitset_set(visited, nvidx, fresh)
+        # 3. visited filter + mark on the visit index
+        ok = nbrs >= 0
+        nvidx = _visit_idx(nbrs, visited_bits)
+        fresh = (ok & ~bitset_test(visited, nvidx, ok)
+                 & first_occurrence_mask(torch.where(ok, nvidx, -1)))
+        visited = bitset_set(visited, nvidx, fresh)
         cand_ids = torch.where(fresh, nbrs, -1)
-        if compact_k is not None and compact_k < cand_ids.shape[1]:
-            # fresh ids packed left in slot order (the kept keys are
-            # distinct, so a stable sort equals the JAX bitonic network)
-            kk = cand_ids.shape[1]
-            slots = torch.arange(kk, dtype=torch.int32, device=dev)
-            key = torch.where(fresh, slots[None, :], kk)
-            skey, order = torch.sort(key, dim=1, stable=True)
-            cand_ids = torch.where(skey[:, :compact_k] < kk,
-                                   torch.gather(cand_ids, 1,
-                                                order[:, :compact_k]), -1)
         # 4. distance block (K2), 5. bitonic merge into the beam
         cand_d = dists_to_ids(vectors, scales, norms, q, qn, cand_ids, metric)
         cand_pk = torch.where(cand_ids < 0, -1, cand_ids * 2)
@@ -175,6 +161,41 @@ def beam_search_layer(
             beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef)
         it += 1
     return beam_pk >> 1, beam_d, iters
+
+
+def _beam_only_loop(vectors, scales, norms, adj, q, qn, beam_pk, beam_d,
+                    metric: str, max_iters: int | None, expand: int,
+                    compact_k: int | None):
+    """The beam-only loop, two launches an iteration: the classic step
+    (`beam_step_classic`: merge the last scored block, select, expand,
+    dedup against the beam, compact) and K2 on its block; after the last
+    K2, one merge-only `beam_update`.  Each step sets its flag in `live`
+    when some beam had an unexpanded member after the merge, so the flags
+    sum to the eager loop's `iters`, and the convergence check reads one
+    flag.  The step that finds every beam expanded selects nothing and
+    leaves an all -1 block, so the loop ends on its merged beam."""
+    dev = beam_pk.device
+    live = torch.zeros((max_iters or 64,), dtype=torch.int32, device=dev)
+    cand_ids = cand_d = None
+    it = 0
+    while max_iters is None or it < max_iters:
+        if it == live.shape[0]:  # max_iters None: the flags grow
+            live = torch.cat([live, torch.zeros_like(live)])
+        beam_pk, beam_d, block = beam_step_classic(
+            beam_pk, beam_d, cand_ids, cand_d, adj, live[it], expand=expand,
+            compact_k=compact_k)
+        if it % CONVERGE_CHECK == 0:
+            with annotate("hnsw.sync.converge"):
+                if not bool(live[it]):
+                    cand_ids = None
+                    break
+        cand_ids = block
+        cand_d = dists_to_ids(vectors, scales, norms, q, qn, cand_ids, metric)
+        it += 1
+    if cand_ids is not None:
+        beam_pk, beam_d, _ = beam_update(beam_pk, beam_d, cand_ids, cand_d,
+                                         expand=expand, select_next=False)
+    return beam_pk >> 1, beam_d, live[:it].sum(dtype=torch.int32)
 
 
 @dataclasses.dataclass

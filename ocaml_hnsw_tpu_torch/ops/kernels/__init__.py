@@ -15,4 +15,7 @@ launches in `<wrapper>.launches`.
 - `beam_update.beam_update` — `csrc/beam_update.cu`; the packed beam
   loop's dedup, merge and next-node select in one launch (the JAX engine
   leaves that step to XLA; it replaces no TPU kernel).
+- `beam_update.beam_step_classic` — the same file's second entry; the
+  classic beam loop's merge, select, expansion, dedup and compaction in
+  one launch (again no TPU kernel: XLA fuses that step on the TPU).
 """

@@ -30,6 +30,9 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ohnsw_beam_update": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                           _int, _int, _int, _int, _int, _vp],
+    "ohnsw_beam_step_classic": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _vp, _vp, _vp, _int, _int, _int, _int,
+                                _int, _int, _int, _int, _vp],
     "ohnsw_gather_dists": [_vp, _int, _vp, _vp, _vp, _vp,
                            _int, _int, _int, _int, _int, _int,
                            _int, _int, _int, _int, _int, _int, _vp],
