@@ -54,22 +54,20 @@ their results against exact ground truth computed on the card:
                                           # the main path's queries, the
                                           # classic step's checks and its
                                           # laion-shaped loops, stop
-    python3 chip_smoke.py --profile-dir DIR  # also write the profiled
-                                             # windows' op tables to DIR
 
-Kernel times are medians of CUDA-event timings.  A spin kernel holds the
-stream while each timed call is enqueued, so host-side launch cost is not
-in the time, and a 128 MiB buffer (more than the 50 MB L2) is read before
-every rep, untimed, so each call finds its data out of L2 (a read leaves
-clean lines: a write would make the call pay for evicting dirty ones).
-Cold inputs are random ids; "real" inputs are
-captured from the main path itself (K1's nodes at the 10th beam iteration of
-an 8192-query batch, K2's seed and rerank ids of that batch, and one
+Kernel times are `bench/kernel_race.py::time_ms` in its "read" mode: the
+median of CUDA-event timings, a spin kernel holding the stream while each
+timed call is enqueued, and a 128 MiB buffer read before every rep, so
+each call finds its data out of L2.  Cold inputs are random ids; "real"
+inputs are captured from the main path itself (K1's nodes at the 10th beam
+iteration of an 8192-query batch, K2's seed and rerank ids of that batch, and one
 1024-row batch of the kNN table), also timed with the L2 flushed, so what
 reuse remains is the sharing of hub rows inside one call.  Each time stands
-beside its bound: the bytes the call must move (every distinct row or slab
-it touches read once, every output written once) over 3.35 TB/s, or its
-operations over the peak rate for their type if that is longer.  A line
+beside its bound, `hnsw_bench/roofline.py::least_seconds`: the bytes the
+call must move (every distinct row or slab it touches read once, every
+output written once) over the memory rate, or its operations over the peak
+rate for their type if that is longer; K1's and K3's work is counted by
+the roofline's `k1_cost` and `k3_cost`, as the benchmark counts it.  A line
 `[floor]` gives the time of a near-empty launch timed the same way, which
 every kernel time includes; each timed K1 line also gives its ring's
 stages, the kernel's registers, resident warps per SM and items per warp.
@@ -120,11 +118,10 @@ summation bound (`k3_agree`).  It is timed cold at the main path's shapes
 (the kNN table's 8192-row block, k = 97; the 8192-query flat batch, k =
 32: each as planned and on the sync path; G1's int8 kNN block), at k =
 256 on main's rows (the one-warpgroup block, and on the sync path) and at
-D1's and D2's captured flat batches, beside its bound, its plain version,
-cuBLAS's bf16 product of the same shapes alone and a model of the bytes
-its rows travel from L2 to the SMs (`k3_l2_bytes_model`: no L2 counter is
-read).  No scan may take K3's
-plain route (`read_launches`), and no main-path phase its sync path.
+D1's and D2's captured flat batches, beside its bound, its plain version
+and cuBLAS's bf16 product of the same shapes alone.  No scan may take K3's
+plain route (`read_launches`), no main-path phase its sync path, and the
+main flat batch's profile must hold K3's kernel (`kernel_census`).
 Ground truth everywhere is the harness's `device_ground_truth` (exact f32
 on the card).  Launch counters are zeroed before each phase and read after
 it; a phase whose path runs a kernel fails if that kernel did not launch.
@@ -152,12 +149,16 @@ import time
 import numpy as np
 import torch
 
+from hnsw_bench.roofline import (
+    F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, k1_cost, k3_cost,
+    least_seconds,
+)
 from ocaml_hnsw_tpu_torch import BFIndex, FlatIndex, HnswConfig, Index
 from ocaml_hnsw_tpu_torch.bench import harness as harness_mod
 from ocaml_hnsw_tpu_torch.bench.datasets import clustered, queries_like
 from ocaml_hnsw_tpu_torch.bench.harness import device_ground_truth, recall_of
 from ocaml_hnsw_tpu_torch.bench.kernel_race import (
-    CONVERSIONS, sass_op_counts,
+    CONVERSIONS, FLUSH_BYTES, sass_op_counts, time_ms,
 )
 from ocaml_hnsw_tpu_torch.models import build as build_mod
 from ocaml_hnsw_tpu_torch.models import bulk as bulk_mod
@@ -249,15 +250,6 @@ G_JAX_SCAN_DELTA = -0.004
 F_PAIRS, F_PAIR_WARMUP, F_PAIR_REPS = 10, 1, 2
 #: the classic engine's candidate compaction at M=16 (knn_query "auto")
 COMPACT_K = 96
-#: K2's width sweep (--kernels-only): vector against ring path, cold
-SWEEP_N, SWEEP_SHAPE = 96_000, (4096, 96)
-SWEEP_WIDTHS = (256, 384, 512, 768, 1024)
-SWEEP_INT8_WIDTHS = (128, 768, 2304)
-#: (storage, D, (B, K), metric, rows): deep10m's int8 rows at the flat
-#: rerank's shape, over 1M rows (96 MB: more than L2)
-SWEEP_INT8_96 = ("int8", 96, (8192, 32), "l2", 1_000_000)
-SWEEP_HOT_N = 8192  # rows of the L2-resident table (25 MB at 768-d f32)
-RING_SHAPE_SWEEP = ((3, 4), (3, 8), (3, 16), (4, 4), (4, 8), (5, 2), (5, 4))
 K2_RTOL = K2_ATOL = 1e-5  # summation order differs (warp tree vs torch)
 #: per-row scales of the int8 rows holding every value (check_k2_int8_values)
 INT8_EDGE_SCALES = (0.0, 1e-30, 1e30, 0.01, 1.0)
@@ -320,18 +312,10 @@ K4C_EDGE_SHAPES = (
 #: entries a query starts from (the seed scan's seed_e)
 K4C_N, K4C_DIM, K4C_ENTRIES = 200_000, 768, 16
 
-#: NVIDIA H100 SXM data sheet: memory rate, dense int8 and f32 (no tensor
-#: core) peaks
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
-FLUSH_BYTES = 128 << 20
-SPIN_CYCLES = 2_000_000  # about 1 ms of spin ahead of each timed call
+REPS = 20  # timed calls per kernel time (K3's own: 10)
 CAPTURE_ITER = 9  # the beam loop's 10th iteration
 KNN_K = 64  # bulk_build's kNN table: k + 1 + 32 = 97 candidates reranked
 DEV = torch.device("cuda")
-PROFILE_DIR = None  # --profile-dir: where busy_share writes op tables
 NO_LIBRARY = ("no single PyTorch call computes it: a gather and a distance "
               "are at least two calls (index_select, then a reduction)")
 K3_NO_LIBRARY = ("no single PyTorch call computes it: a product and a top-k "
@@ -351,48 +335,6 @@ TENSOR_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA")
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def device_ms(fn, flush=None, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call (module docstring)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.sum()  # evicts the call's data from L2 (docstring)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound(nbytes: int, ops: int, peak: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def k1_cost(nodes, slots: int, d_pad: int, bits: int = 8
-            ) -> tuple[int, int, float]:
-    """(bytes, ops, peak rate) of one packed_score call on these nodes:
-    each distinct node's first `slots` slab rows of d_pad bytes and their
-    ids and norms, each query row and node id, each output.  bits=8: int8
-    multiply-adds; bits=4: f32 multiply-adds (two components per byte)."""
-    live = nodes[nodes >= 0]
-    b, e = nodes.shape
-    q_bytes = d_pad if bits == 8 else 4 * d_pad
-    nbytes = (int(torch.unique(live).numel()) * (slots * d_pad + 8 * slots)
-              + b * (q_bytes + 4) + b * e * 4 + b * e * slots * 8)
-    comps = d_pad if bits == 8 else 2 * d_pad
-    return (nbytes, 2 * int(live.numel()) * slots * comps,
-            INT8_OPS_PER_S if bits == 8 else F32_FLOPS_PER_S)
 
 
 def k1_int4_bound(args, d, d_ref):
@@ -440,11 +382,11 @@ def k1_residency(args) -> dict:
 
 def method_floor() -> dict:
     """Device time of a near-empty launch (`torch.cuda._sleep(1)`) by
-    `device_ms`, with and without the L2 flush: what every kernel time in
+    `time_ms`, with and without the L2 flush: what every kernel time in
     this script includes besides the kernel's own work."""
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
-    floor = {mode: device_ms(lambda: torch.cuda._sleep(1), f) * 1e3
-             for mode, f in (("cold", flush), ("warm", None))}
+    floor = {mode: time_ms(lambda: torch.cuda._sleep(1), how, REPS, flush)
+             * 1e3 for mode, how in (("cold", "read"), ("warm", "warm"))}
     del flush
     return floor
 
@@ -470,9 +412,10 @@ def k2_requested(vec, ids) -> int:
 
 def timed(row: dict, kernel, plain, nbytes: int, ops: int, peak: float,
           flush) -> dict:
-    ms = device_ms(kernel, flush)
-    plain_ms = device_ms(plain, flush)
-    bms, by = bound(nbytes, ops, peak)
+    ms = time_ms(kernel, "read", REPS, flush)
+    plain_ms = time_ms(plain, "read", REPS, flush)
+    bms = least_seconds(nbytes, ops, peak) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
     row.update(bytes=nbytes, bound_ms=bms, bound_by=by, ms=ms,
                plain_ms=plain_ms, share=bms / ms)
     return row
@@ -667,62 +610,25 @@ def require_launches(phase: str, launches: dict, kernels) -> None:
                              f"the sync path in phase {phase}")
 
 
-def busy_share(fn, name: str, again: bool = True) -> dict:
-    """Profile one call of fn: the device-busy share of its wall time
-    (kernels' device time summed by torch.profiler over the wall time of
-    the profiled call; profiling adds host time, so this reads low; None
-    when the profiler records no device time), the number of device
-    kernels, the wall time per kernel, the six device kernels with the
-    most device time as [name, ms, count], and every device kernel's name.
-    With --profile-dir DIR the op table (by host time) goes to
-    DIR/profile_<name>.txt.
-
-    Once a process has run for a minute or so, torch.profiler drops the
-    first kernel records of a window, more as the process ages (PERF.md
-    §7); a schedule that runs fn in a wait and a warm-up step before the
-    recorded one keeps that call whole.  `again=False` (fn changes state
-    and may run once) records a plain window, which may miss its first
-    kernels."""
+def kernel_census(fn) -> list[str]:
+    """The names of the device kernels one call of fn launches, as
+    torch.profiler records them.  Once a process has run for a minute or
+    so, torch.profiler drops the first kernel records of a window, more as
+    the process ages (PERF.md §7); a schedule that runs fn in a wait and a
+    warm-up step before the recorded one keeps that call whole."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    steps = 3 if again else 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=1)
-                 if again else None) as prof:
-        for _ in range(steps):
-            t0 = time.perf_counter()
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
             fn()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0  # not the trace's processing
-            if again:
-                prof.step()
-    stats = prof.key_averages()
+            prof.step()
     # device events but the schedule's step annotation, which spans them
-    dev = [e for e in stats
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
-    dev_us = sum(e.self_device_time_total for e in dev)
-    kernels = sum(e.count for e in dev)
-    if PROFILE_DIR is not None:
-        os.makedirs(PROFILE_DIR, exist_ok=True)
-        with open(os.path.join(PROFILE_DIR, f"profile_{name}.txt"), "w") as f:
-            f.write(stats.table(sort_by="self_cpu_time_total", row_limit=40))
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(share=dev_us / 1e6 / wall if dev_us > 0 else None,
-                kernels=kernels, wall_s=wall,
-                names=[e.key for e in dev],
-                us_per_kernel=wall * 1e6 / kernels if kernels else None,
-                top=[[e.key[:70], round(e.self_device_time_total / 1e3, 2),
-                      e.count] for e in top])
-
-
-def fmt_share(busy: dict) -> str:
-    if busy["share"] is None:
-        return "device busy not measured"
-    return (f"device busy {busy['share']:.0%} of {busy['wall_s'] * 1e3:.0f} "
-            f"ms, {busy['kernels']} kernels = {busy['us_per_kernel']:.1f} us "
-            f"of wall each")
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
 
 
 def check_result(labels, dists, n_q: int, k: int) -> None:
@@ -1114,19 +1020,6 @@ def k3_inputs(b: int, n_rows: int, n_live: int, dim: int, dtype: str,
             flat.deleted[cut], flat.n, q)
 
 
-def k3_cost(scan, q, k: int) -> tuple[int, int, float]:
-    """(bytes, ops, peak) of one scan_topk call: each row with its norm,
-    tombstone (and int8 scale) read once, each f32 query read once, each
-    (score, i64 id) written once; 2·B·N·D multiply-adds on the tensor
-    cores."""
-    n, d = scan.shape
-    b = q.shape[0]
-    int8 = scan.dtype == torch.int8
-    row = d * scan.element_size() + 5 + (4 if int8 else 0)
-    return (n * row + b * d * 4 + b * k * 12, 2 * b * n * d,
-            INT8_OPS_PER_S if int8 else BF16_FLOPS_PER_S)
-
-
 def k3_eps(scan, q, id_lists, l2: bool):
     """Per query, the f32 summation bound 2·D·2⁻²⁴·Σ|q_i·x_i| of a bf16
     scan's dot (two sums of exact products in different orders), doubled
@@ -1194,20 +1087,6 @@ def k3_product(scan, q):
     return run
 
 
-def k3_l2_bytes_model(scan, plan) -> int:
-    """A model, not a measurement, of the bytes the rows travel from L2 to
-    the SMs in one call of `plan`: every row of a split fetched once per
-    query tile that reads it, 128 bytes a row per 128-byte chunk on the
-    wgmma path (TMA's box), the row's bytes on the sync path (its norm,
-    tombstone and int8 scale aside).  No L2 counter can be read on the
-    card's machine (ncu does not run there)."""
-    n, d = scan.shape
-    if plan.path == "wgmma":
-        row = -(-plan.dp_bytes // k3_mod.CHUNK_BYTES) * k3_mod.CHUNK_BYTES
-        return plan.qtiles * n * row
-    return plan.qtiles * n * d * scan.element_size()
-
-
 def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
             time_it: bool = False, path: str | None = None) -> dict:
     """scan_topk (on `path` when given) against scan_topk_plain on `args`
@@ -1226,7 +1105,6 @@ def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
     row = dict(case=label, shape=[b, scan.shape[0], dim, rerank_k],
                dtype=str(scan.dtype).replace("torch.", ""), metric=metric,
                max_abs_err=err, path=plan.path,
-               l2_sm_bytes_model=k3_l2_bytes_model(scan, plan),
                plan=dict(path=plan.path, qt=plan.qt, stages=plan.stages,
                          buf=plan.buf, producer=plan.producer,
                          splits=plan.splits,
@@ -1234,21 +1112,23 @@ def k3_case(label: str, args, rerank_k: int, metric: str, flush=None,
                          pages=-(-rerank_k // k3_mod.K_MAX)))
     timing = ""
     if time_it:
-        nbytes, ops, peak = k3_cost(scan, q, rerank_k)
-        ms = device_ms(lambda: scan_topk(*args, rerank_k, metric, path=path),
-                       flush, reps=10)
-        plain_ms = device_ms(lambda: scan_topk_plain(*args, rerank_k,
-                                                     metric),
-                             flush, reps=K3_PLAIN_REPS, warmup=1)
-        product_ms = device_ms(k3_product(scan, q), flush, reps=5, warmup=1)
-        bms, by = bound(nbytes, ops, peak)
+        # the live rows, as the benchmark's k3_roofline_pct counts them
+        n = int(args[4])
+        nbytes, ops, peak = k3_cost(n - int(args[3][:n].sum()), dim,
+                                    scan.element_size(), b, rerank_k)
+        ms = time_ms(lambda: scan_topk(*args, rerank_k, metric, path=path),
+                     "read", 10, flush)
+        plain_ms = time_ms(lambda: scan_topk_plain(*args, rerank_k, metric),
+                           "read", K3_PLAIN_REPS, flush)
+        product_ms = time_ms(k3_product(scan, q), "read", 5, flush)
+        bms = least_seconds(nbytes, ops, peak) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
         row.update(bytes=nbytes, bound_ms=bms, bound_by=by, ms=ms,
                    plain_ms=plain_ms, share=bms / ms, product_ms=product_ms,
                    tops=ops / ms / 1e9)
         timing = (f"; {nbytes / 1e6:.1f} MB, {ops / 1e12:.2f} T ops, bound "
                   f"{bms:.3f} ms ({by}); kernel {ms:.3f} ms = {bms / ms:.1%}"
-                  f" of bound, {row['tops']:.1f} T ops/s, L2->SM (model) "
-                  f"{row['l2_sm_bytes_model'] / 1e9:.2f} GB; plain "
+                  f" of bound, {row['tops']:.1f} T ops/s; plain "
                   f"{plain_ms:.2f} ms; bf16 product alone {product_ms:.3f} ms")
     say(f"[K3 scan_topk] {label} B={b} N={scan.shape[0]} D={dim} "
         f"k={rerank_k} {row['dtype']} {metric} "
@@ -1445,114 +1325,6 @@ def capture_knn_batch(x: torch.Tensor):
     return vec, scales, q, ids, metric
 
 
-def width_sweep(gen, flush) -> list[dict]:
-    """The vector and ring paths of K2 timed cold on the same inputs (each
-    path the shape can take): at SWEEP_SHAPE, cosine, over SWEEP_N unit
-    rows, f32 at each of SWEEP_WIDTHS, bf16 at 768 and int8 at each of
-    SWEEP_INT8_WIDTHS; int8 at deep10m's D=96 at SWEEP_INT8_96; f32 768
-    with every id distinct (b·k rows, no reuse) and over an L2-resident
-    table, warm (all reuse); then the ring's shapes of RING_SHAPE_SWEEP at
-    f32 768, cold and unique.  Prints each pair and, for f32 and for int8,
-    the crossing: the narrowest row width from which the ring is at least
-    as fast at every wider width both paths take (RING_MIN_ROW_BYTES is
-    set from the f32 one)."""
-    b, k = SWEEP_SHAPE
-    rows, pairs = [], []
-    cases = ([("f32", d, SWEEP_SHAPE, "cosine", SWEEP_N)
-              for d in SWEEP_WIDTHS] + [("bf16", 768, SWEEP_SHAPE, "cosine",
-                                         SWEEP_N)]
-             + [("int8", d, SWEEP_SHAPE, "cosine", SWEEP_N)
-                for d in SWEEP_INT8_WIDTHS] + [SWEEP_INT8_96])
-    for storage, d, (cb, ck), metric, n in cases:
-        g = torch.Generator(device=DEV).manual_seed(d)
-        x = torch.randn((n, d), device=DEV, generator=g)
-        if metric == "cosine":
-            x /= torch.linalg.norm(x, dim=1, keepdim=True)
-        vec, sc, _ = quantize_rows(x, storage)
-        del x
-        q = torch.randn((cb, d), device=DEV, generator=g)
-        if metric == "cosine":
-            q /= torch.linalg.norm(q, dim=1, keepdim=True)
-        ids = cold_ids(gen, cb, ck, n)
-        got = {}
-        for p in ("vector", "ring"):
-            try:
-                k2_mod.launch_plan(cb, ck, d, vec.element_size(), True,
-                                   path=p)
-            except ValueError:
-                continue  # a path this width cannot take
-            got[p] = k2_case("sweep", vec, sc, q, ids, metric, flush,
-                             time_it=True, path=p, force=True)
-        rows += got.values()
-        if (storage, d) == ("f32", 768):
-            wide768 = (vec, q, ids)
-        pairs.append(dict(dtype=storage, dim=d, shape=[cb, ck], metric=metric,
-                          row_bytes=d * vec.element_size(),
-                          plan=k2_mod.launch_plan(cb, ck, d,
-                                                  vec.element_size(),
-                                                  True).path,
-                          **{f"{p}_ms": r["ms"] for p, r in got.items()},
-                          bound_ms=next(iter(got.values()))["bound_ms"]))
-        del vec, sc
-    # no reuse: every id distinct, so the bound is the bytes requested
-    g = torch.Generator(device=DEV).manual_seed(1)
-    x = torch.randn((b * k, 768), device=DEV, generator=g)
-    x /= torch.linalg.norm(x, dim=1, keepdim=True)
-    q = x[:b].clone()
-    ids = torch.randperm(b * k, device=DEV, generator=g).to(
-        torch.int32).view(b, k)
-    unique = {p: k2_case("sweep unique ids", x, torch.ones(b * k, device=DEV),
-                         q, ids, "cosine", flush, time_it=True, path=p,
-                         force=True)
-              for p in ("vector", "ring")}
-    rows += unique.values()
-    # all reuse: a table that fits in L2 (25 MB), timed warm, so the rows
-    # come from L2 and the bytes requested show what L2 delivers
-    hot = x[:SWEEP_HOT_N]
-    hot_ids = torch.randint(0, SWEEP_HOT_N, (b, k), device=DEV,
-                            generator=g).to(torch.int32)
-    hot_ms = {p: k2_case("sweep L2-resident table, warm", hot,
-                         torch.ones(SWEEP_HOT_N, device=DEV), q, hot_ids,
-                         "cosine", None, time_it=True, path=p,
-                         force=True)["ms"]
-              for p in ("vector", "ring")}
-    # the ring's shape at 768-d f32: (lanes per row as log2, stages)
-    shapes = {}
-    keep = k2_mod.RING_SHAPES
-    try:
-        for shape in RING_SHAPE_SWEEP:
-            k2_mod.RING_SHAPES = (shape,)
-            k2_mod.launch_plan.cache_clear()
-            for tag, vec, qq, ii in (("unique", x, q, ids),
-                                     ("cold", *wide768)):
-                r = k2_case(f"sweep ring shape {shape} {tag}", vec,
-                            torch.ones(vec.shape[0], device=DEV), qq, ii,
-                            "cosine", flush, time_it=True, path="ring",
-                            force=True)
-                shapes[f"{shape} {tag}"] = r["ms"]
-    finally:
-        k2_mod.RING_SHAPES = keep
-        k2_mod.launch_plan.cache_clear()
-    del x, wide768
-    cross = {}
-    for dtype in ("f32", "int8"):
-        both = sorted((p for p in pairs if p["dtype"] == dtype
-                       and "vector_ms" in p and "ring_ms" in p),
-                      key=lambda p: p["row_bytes"])
-        cross[dtype] = next((p["row_bytes"] for i, p in enumerate(both)
-                             if all(r["ring_ms"] <= r["vector_ms"]
-                                    for r in both[i:])), None)
-    say("[K2 sweep] " + json.dumps(dict(
-        shape=[b, k], n=SWEEP_N, pairs=pairs,
-        f32_crossing_row_bytes=cross["f32"],
-        int8_crossing_row_bytes=cross["int8"],
-        ring_min_row_bytes=k2_mod.RING_MIN_ROW_BYTES,
-        unique_ids_f32_768={p: dict(ms=r["ms"], bound_ms=r["bound_ms"])
-                            for p, r in unique.items()},
-        l2_table_warm_ms=hot_ms, ring_shapes_ms=shapes)))
-    return rows
-
-
 def kernels_only(gen) -> int:
     """Edge checks plus cold timings on synthetic data (no index)."""
     flush = torch.zeros(FLUSH_BYTES // 4, device=DEV)
@@ -1563,7 +1335,6 @@ def kernels_only(gen) -> int:
     x = torch.from_numpy(clustered(200_000, DIM, n_clusters=400,
                                    seed=7)).to(DEV)
     check_k2_edges(x, gen)
-    width_sweep(gen, flush)
     pay, meta = synthetic_packed(N, 32, 128, seed=100)
     scale = torch.tensor([0.02], device=DEV)
     for b in (4096, 8192):
@@ -1740,8 +1511,8 @@ def phase_k4(smi: str, flush, gen) -> list[dict]:
     launches K4 2·max_iters + 2 times (each half's first selection, then
     one update an iteration), and answers exactly as the same call with
     the plain version in K4's place (the eager beam step it replaced).
-    Times K4 on the main path's own inputs at the 10th iteration, the two
-    calls in alternating pairs, and profiles the K4 call."""
+    Times K4 on the main path's own inputs at the 10th iteration, and the
+    two calls in alternating pairs."""
     data = clustered(N, DIM, n_clusters=400, seed=7)
     qps_queries = queries_like(data, QPS_BATCH, seed=9)
     index = Index("l2", DIM, device=DEV.type)
@@ -1801,10 +1572,6 @@ def phase_k4(smi: str, flush, gen) -> list[dict]:
         f"{med['eager'] * 1e3:.1f} ms = {QPS_BATCH / med['eager']:.0f} QPS; "
         f"all K4 {json.dumps([round(t * 1e3, 2) for t in times['k4']])} ms "
         f"[{smi}]")
-    busy = busy_share(lambda: index.knn_query(qps_queries, **QUERY_KNOBS),
-                      "k4_query")
-    say(f"[K4 main] profiled K4 call: {fmt_share(busy)}; device time by "
-        f"kernel [name, ms, count]: {json.dumps(busy['top'])} [{smi}]")
     return rows
 
 
@@ -1959,8 +1726,8 @@ def phase_k4c(smi: str, gen) -> None:
     one beam_search_layer call each, with the launches of the step, K2 and
     K4's merge counted and the bitonic stages run (`sortmerge._stage`: the
     entries' sort only), the answer against the eager loop's (the plain
-    step and merge in their places) bit for bit, the host-clock time of
-    both in turns, and the kernel call profiled."""
+    step and merge in their places) bit for bit, and the host-clock time
+    of both in turns."""
     x, adj0, view, up = k4c_graph(gen)
     ones = torch.ones(K4C_N, device=DEV)
     norms = torch.zeros(K4C_N, device=DEV)  # cosine: unused
@@ -2022,15 +1789,13 @@ def phase_k4c(smi: str, gen) -> None:
                 torch.cuda.synchronize()
                 times[side].append(time.perf_counter() - t0)
         med = {k: statistics.median(v) for k, v in times.items()}
-        busy = busy_share(call, f"k4c_{label.replace(' ', '_')}")
         say(f"[K4 classic loop] {label} B={b} ef={ef} E={e} deg={deg} "
             f"compact_k={ck} max_iters={max_iters}: {int(iters)} iters, "
             f"launches step {k4c} K2 {k2} merge {k4}, {len(stages)} bitonic "
             f"stages (the entries'); equal to the eager loop bit for bit; "
             f"host-clock call, median of 3 in turns: kernel "
             f"{med['kernel'] * 1e3:.1f} ms, eager {med['eager'] * 1e3:.1f} "
-            f"ms; profiled kernel call: {fmt_share(busy)}; top "
-            f"{json.dumps(busy['top'])} [{smi}]")
+            f"ms [{smi}]")
     del x, adj0, view
 
 
@@ -2345,8 +2110,7 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
         raise AssertionError("phase A: results differ after save/load")
     extra = queries_like(data, A_ADD, seed=11)
     reset_launches()
-    add_busy = busy_share(lambda: loaded.add_items(extra), "A_add",
-                          again=False)
+    loaded.add_items(extra)
     add_launches = read_launches()
     require_launches("A add after load", add_launches,
                      ["gather_dists", "beam_step_classic"])
@@ -2365,15 +2129,14 @@ def phase_a(smi: str, flush, gen) -> tuple[dict, list]:
             * loaded.graph.adj0.shape[1]):
         raise AssertionError(f"phase A: search_stats counters {stats}")
     out = dict(build_vps=A_N / build_s, build_s=build_s, recall=rec,
-               qps=qps, recall_after_add=rec_all, add_busy=add_busy,
+               qps=qps, recall_after_add=rec_all,
                launches_build=build_launches, launches_per_batch=batch_launches,
                launches_add=add_launches)
     say(f"[A random10k] build {build_s:.2f} s = {A_N / build_s:.0f} vectors/s;"
         f" recall@10 {rec:.4f} (floor {A_FLOOR}) at ef={A_EF} classic; "
         f"QPS {qps:.0f} (median of 5 batches of {N_QUERIES}); save/load with"
         f" resize to {A_N + A_ADD}: identical; +{A_ADD} after load: recall@10"
-        f" {rec_all:.4f}, {fmt_share(add_busy)} in that add "
-        f"(profiled); launches build {json.dumps(build_launches)}, per "
+        f" {rec_all:.4f}; launches build {json.dumps(build_launches)}, per "
         f"batch {json.dumps(batch_launches)} [{smi}]")
     vec, sc, qq, ids, metric = k2_args(build_call)
     rows = [k2_case(f"A build round cold ({A_RS}, {COMPACT_K})", vec, sc, qq,
@@ -2467,12 +2230,10 @@ def phase_stream(tag: str, config: str, storage: str, data_dtype: str,
     query_call = [c for c in calls
                   if tuple(c[5].shape) == (B_QB, COMPACT_K)][9]
     del calls
-    query_busy = busy_share(lambda: search_mod.knn_search(graph, qb, **knobs),
-                            f"{tag}_query")
     res = dict(warm_vps=out["warm_build_vps"], ingest_vps=out["ingest_vps"],
                launches_warm=warm_launches, launches_ingest=ingest_launches,
-               sweep=out["sweep"], query_busy=query_busy,
-               recall_own_rows=rec_own, recall_ceiling=ceiling)
+               sweep=out["sweep"], recall_own_rows=rec_own,
+               recall_ceiling=ceiling)
     say(f"[{tag} {config} cut to {B_N}x{B_DIM} cosine, {storage} rows, "
         f"{data_dtype} source, round_size {round_size}] warm "
         f"{out['warm_build_vps']} vectors/s; ingest {out['ingest_vps']}"
@@ -2484,8 +2245,7 @@ def phase_stream(tag: str, config: str, storage: str, data_dtype: str,
         + f"; at {knobs['ef']}/{knobs['max_iters']} recall@10 against the "
         f"stored rows' own exact neighbours {rec_own:.4f}, those neighbours'"
         f" recall@10 {ceiling:.4f} (the ceiling of {storage} rows)"
-        + f"; {fmt_share(query_busy)} in a {B_QB}-query batch at "
-        f"{knobs['ef']}/{knobs['max_iters']} (profiled); K2 launches warm "
+        + f"; K2 launches warm "
         f"{warm_launches['gather_dists']} ({k2_path} "
         f"{warm_launches[f'gather_dists/{k2_path}']}), ingest "
         f"{ingest_launches['gather_dists']} ({k2_path} "
@@ -2981,8 +2741,6 @@ def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
     batch = read_launches()
     require_launches("E packed query", batch,
                      ["gather_dists", "packed_score"])
-    query_busy = busy_share(
-        lambda: index.knn_query(qps_queries, **E_KNOBS), "E_query")
 
     # lifecycle: save -> load, tombstone, get_items
     with tempfile.TemporaryDirectory() as tmp:
@@ -3007,7 +2765,7 @@ def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
 
     out = dict(shards=s, cards=cards, build_vps_first=vps1,
                build_vps_second=vps2, recall_classic=rec_c,
-               recall_packed=rec_p, qps=qps, query_busy=query_busy,
+               recall_packed=rec_p, qps=qps,
                launches_first_add=add1, launches_classic_batch=classic,
                launches_second_add=add2, launches_packed_batch=batch)
     say(f"[E sharded] {s} shards on {cards} card(s), clustered {E_N}x{DIM} "
@@ -3016,8 +2774,8 @@ def phase_e(smi: str, flush, gen) -> tuple[dict, list, list]:
         f"at ef={E_CLASSIC['ef']}; second add {E_N - E_FIRST} at "
         f"{vps2:.0f} vectors/s; packed recall@10 {rec_p:.4f} (floor "
         f"{E_FLOOR}), QPS {qps:.0f} in {QPS_BATCH}-query batches at "
-        f"{json.dumps(E_KNOBS)}; {fmt_share(query_busy)} in one batch "
-        f"(profiled); save/load identical, tombstone honoured, get_items "
+        f"{json.dumps(E_KNOBS)}; save/load identical, tombstone honoured, "
+        f"get_items "
         f"equal; launches first add {json.dumps(add1)}, classic batch "
         f"{json.dumps(classic)}, second add {json.dumps(add2)}, packed "
         f"batch {json.dumps(batch)} [{smi}]")
@@ -3054,9 +2812,6 @@ def headline(rows: list[dict], case: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    global PROFILE_DIR
-    if "--profile-dir" in argv:
-        PROFILE_DIR = argv[argv.index("--profile-dir") + 1]
     name, smi = phase_device()
     logging.basicConfig(stream=sys.stdout, level=logging.WARNING,
                         format="[%(name)s] %(message)s")
@@ -3194,8 +2949,8 @@ def main(argv: list[str]) -> int:
                              flush, gen)
     del knn_call, seed_call, rerank_call
     k3_rows += check_k3_main(x, qps_queries, flush)
-    # where one flat-scan batch spends its device time (K3, the K2 rerank,
-    # sorts): 8192 queries over the 1M rows, bf16 scan
+    # one flat-scan batch (K3, the K2 rerank, sorts): 8192 queries over the
+    # 1M rows, bf16 scan
     flat = bulk_mod.flat_from_rows(x, "l2")
     qq = torch.from_numpy(qps_queries).to(dev)
     reset_launches()
@@ -3203,15 +2958,12 @@ def main(argv: list[str]) -> int:
     flat_launches = read_launches()
     require_launches("main flat batch", flat_launches,
                      ["scan_topk", "scan_topk/bf16", "gather_dists"])
-    flat_busy = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
-                           "flat_batch")
     # the trace must hold K3's kernel (the wgmma path's: the main shapes
-    # all take it): the busy share and any device time read from a trace
-    # count it
-    if not any(K3_MAIN_KERNEL in k for k in flat_busy["names"]):
+    # all take it): any device time read from a trace counts it
+    names = kernel_census(lambda: flat_mod.flat_search(flat, qq, 10, "l2"))
+    if not any(K3_MAIN_KERNEL in k for k in names):
         raise AssertionError("the main flat batch's profile holds no "
-                             f"{K3_MAIN_KERNEL} record: "
-                             f"{json.dumps(flat_busy['top'])}")
+                             f"{K3_MAIN_KERNEL} record: {json.dumps(names)}")
     # the batch's own time, host clock around a synchronize, median of 5
     times = []
     for _ in range(5):
@@ -3220,18 +2972,9 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     flat_ms = statistics.median(times) * 1e3
-    # the same batch in a plain window, which may miss its first kernel
-    # records (busy_share): printed, not required
-    plain = busy_share(lambda: flat_mod.flat_search(flat, qq, 10, "l2"),
-                       "flat_batch_plain", again=False)
-    k3_in = any(K3_MAIN_KERNEL in k for k in plain["names"])
     say(f"[main flat batch] {QPS_BATCH} queries over {N}x{DIM} bf16 scan: "
         f"{flat_ms:.2f} ms = {QPS_BATCH / flat_ms * 1e3:.0f} QPS (median of "
-        f"5); profiled: {fmt_share(flat_busy)}; device time by kernel "
-        f"[name, ms, count]: {json.dumps(flat_busy['top'])}; a plain "
-        f"window of the same batch records {plain['kernels']} kernels, K3 "
-        f"{'among them' if k3_in else 'not among them'}; launches "
-        f"{json.dumps(flat_launches)} [{smi}]")
+        f"5); launches {json.dumps(flat_launches)} [{smi}]")
     del flat, qq
 
     for kern, n in launches.items():

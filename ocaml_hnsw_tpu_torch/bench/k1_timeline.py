@@ -1,20 +1,18 @@
 """Per-warp timeline of K1 (`csrc/payload_score.cu`) on one card.
 
-    python -m ocaml_hnsw_tpu_torch.bench.k1_timeline [--tree DIR]
-        [--patch FILE] [--out F]
+    python -m ocaml_hnsw_tpu_torch.bench.k1_timeline [--tree DIR] [--out F]
 
-DIR is a checkout of the repository (default: this one) and FILE a unified
-diff (default: `k1_stamps.patch` beside this script) that puts `K1_STAMP(k)`
-calls into DIR's `csrc/payload_score.cu`, k in [0, SLOTS):
+DIR is a checkout of the repository (default: this one).  `k1_stamps.patch`
+beside this script is a unified diff that puts `K1_STAMP(k)` calls into
+DIR's `csrc/payload_score.cu`, k in [0, SLOTS):
 
     0        warp start               1   node ids loaded, first copies
     2 + 2i   item i landed (i < 6)        issued
     3 + 2i   item i scored (i < 6)    14  the warp's last item scored
     15       warp exit
 
-`k1_stamps.patch` fits this checkout's kernel, `k1_stamps_339a586.patch`
-the kernel of commit 339a586 (the design before the two-stage, one-ahead
-ring).  The stamped source is compiled alone into a library of its own in a
+The patch fits this checkout's kernel, so DIR's must take it too.  The
+stamped source is compiled alone into a library of its own in a
 temporary directory, with a header force-included that defines `K1_STAMP`
 (lane 0 of the warp writes `%globaltimer`, and `%smid` at the start, to a
 device buffer: little, since the kernel is held to 64 registers and a
@@ -48,6 +46,7 @@ from pathlib import Path
 
 SLOTS = 16
 HERE = Path(__file__).resolve().parent
+PATCH = HERE / "k1_stamps.patch"
 N_NODES = 1_000_000
 #: (label, B, E, deg, d_pad stored bytes, slots, bits)
 SHAPES = (
@@ -208,7 +207,7 @@ def _check(k1, args, label: str) -> None:
                              "version")
 
 
-def _worker(tree: str, patch: Path, out_path: str) -> None:
+def _worker(tree: str, out_path: str) -> None:
     """Runs in a child process with `tree` first on sys.path (its wrapper,
     its csrc); times with this checkout's `kernel_race.time_ms`."""
     sys.path.insert(0, tree)
@@ -228,10 +227,10 @@ def _worker(tree: str, patch: Path, out_path: str) -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.zeros(race.FLUSH_BYTES // 4, device=dev)
-    report = dict(card=smi, tree=tree, patch=patch.name, shapes=[])
-    print(f"[timeline] {smi}; {tree} with {patch.name}", flush=True)
+    report = dict(card=smi, tree=tree, patch=PATCH.name, shapes=[])
+    print(f"[timeline] {smi}; {tree} with {PATCH.name}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        _lib._lib = _stamped_library(_lib, patch, Path(tmp))
+        _lib._lib = _stamped_library(_lib, PATCH, Path(tmp))
         # a row per warp the card can hold (at most 64 per SM)
         tl = torch.zeros((sms * 64, SLOTS, 2), dtype=torch.int64, device=dev)
         _lib.check(_lib._lib.ohnsw_k1_timeline(tl.data_ptr()), "timeline")
@@ -281,22 +280,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(HERE.parents[1]),
                     help="a checkout of the repository (default: this one)")
-    ap.add_argument("--patch", default=str(HERE / "k1_stamps.patch"),
-                    help="the stamps for that checkout's kernel")
     ap.add_argument("--out", default="k1_timeline.json")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     tree = str(Path(args.tree).resolve())
-    patch = Path(args.patch).resolve()
     if args.worker:
-        _worker(tree, patch, args.out)
+        _worker(tree, args.out)
         return 0
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("k1_timeline: no CUDA device available")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    cmd = [sys.executable, __file__, "--tree", tree, "--patch", str(patch),
+    cmd = [sys.executable, __file__, "--tree", tree,
            "--out", str(Path(args.out).resolve()), "--worker"]
     proc = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=tree),
                           cwd=tree, timeout=1500)

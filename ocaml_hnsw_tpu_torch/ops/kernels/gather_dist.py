@@ -35,8 +35,8 @@ TASKS_PER_SM = 128
 GENERIC_ROWS = 4
 #: the ring path takes aligned rows of a 16-byte multiple width from this
 #: many bytes up (and every such row wider than 1024 elements): the
-#: crossing point of the vector and ring paths in chip_smoke.py
-#: --kernels-only's width sweep (PERF.md)
+#: crossing point of the vector and ring paths, measured by the width
+#: sweep of commit 3d59fe2 (PERF.md §6)
 RING_MIN_ROW_BYTES = 2048
 #: ring path: warps per block (csrc kMaxRingWarps), and the (lanes per row
 #: as log2, stages per warp) shapes tried in order, widest ring first, until
