@@ -114,7 +114,12 @@ which takes one launch per page of K_MAX, with rows repeated so that
 scores tie across a page's edge), each on every path that takes it (the
 `wgmma` block, of two consumer warpgroups or of one, and the `sync`
 block): int8 scores equal bit for bit, bf16 scores within the f32
-summation bound (`k3_agree`).  It is timed cold at the main path's shapes
+summation bound (`k3_agree`).  On adversarial integer-valued inputs
+(`check_k3_adversarial`: rows in decreasing distance to the queries, so
+that nearly every tile brings candidates; rows repeated, so that scores
+tie) its lists equal the plain version's in (score, id) order bit for
+bit, bf16 and int8, at rerank_k 32, 97, K_MAX and a bounded page.  It is
+timed cold at the main path's shapes
 (the kNN table's 8192-row block, k = 97; the 8192-query flat batch, k =
 32: each as planned and on the sync path; G1's int8 kNN block), at k =
 256 on main's rows (the one-warpgroup block, and on the sync path) and at
@@ -261,6 +266,11 @@ INT8_EDGE_SCALES = (0.0, 1e-30, 1e30, 0.01, 1.0)
 K3_EDGE = (300, 11_997, 10_000)
 K3_DIMS = (96, 100, 128, 768)
 K3_KS = (32, 97, k3_mod.K_MAX)
+#: K3's adversarial inputs (`check_k3_adversarial`): B queries x N rows x
+#: D, the duplicates' pool of distinct rows, the paged rerank_k
+K3_ADV = (1024, 65_536, 128)
+K3_ADV_POOL = 2048
+K3_ADV_PAGED = 300
 #: bf16 scans: the least share of (query, slot) ids K3 and its plain
 #: version hold in common (the rest tie with the k-th score within the f32
 #: summation bound)
@@ -1206,6 +1216,65 @@ def check_k3_edges(gen) -> list[dict]:
             args[1][:bq // 4, None] if dtype == "int8" else 1.0)
         on_paths(f"paged {dtype} D={dim} {metric} k={k}, repeated rows",
                  args[:5] + (q,), k, metric)
+    return rows + check_k3_adversarial(gen)
+
+
+def k3_exact_flat(rows, dtype: str, gen, dead_share: float = 0.02):
+    """(scan, scales, norms, deleted, n) of a flat holding the f32 `rows`
+    in order, a `dead_share` of them tombstoned."""
+    flat = flat_mod.empty_flat(rows.shape[1], rows.shape[0],
+                               scan_dtype=dtype, device=DEV)
+    flat_mod.flat_add(flat, rows, 0, rows.shape[0])
+    flat.deleted[:] = torch.from_numpy(gen.random(flat.n_cap)
+                                       < dead_share).to(DEV)
+    return flat.scan, flat.scales, flat.norms, flat.deleted, flat.n
+
+
+def check_k3_adversarial(gen) -> list[dict]:
+    """K3 where its candidate path works hardest, against its plain
+    version in (score, id) order (every row's plain score, sorted by
+    `merge_splits`: ties to the lower id), bit for bit, at k = 32, 97, 256
+    and 300 (a page of 256, then a bounded page of 44), bf16 and int8, l2.
+    Values are small integers, so bf16 products and sums are exact and
+    equal in both.  "ordered": rows sorted by decreasing distance to a
+    centre that half the queries sit on and the other half near, so that
+    nearly every tile brings candidates to every query and its queues
+    fill; "duplicates": rows drawn from a pool of K3_ADV_POOL, so scores
+    tie across many ids."""
+    b, n, dim = K3_ADV
+    centre = gen.integers(-8, 9, dim).astype(np.float32)
+    off = gen.integers(-8, 9, (n, dim)).astype(np.float32)
+    ordered = centre + off[np.argsort(-(off * off).sum(1), kind="stable")]
+    near = np.zeros((b, dim), np.float32)
+    near[b // 2:, :2] = gen.integers(-1, 2, (b - b // 2, 2))
+    pool = gen.integers(-8, 9, (K3_ADV_POOL, dim)).astype(np.float32)
+    data = {"ordered": (ordered, centre + near),
+            "duplicates": (pool[gen.integers(0, K3_ADV_POOL, n)],
+                           gen.integers(-8, 9, (b, dim)).astype(np.float32))}
+    rows = []
+    for name, (x, q) in data.items():
+        x, q = torch.from_numpy(x).to(DEV), torch.from_numpy(q).to(DEV)
+        for dtype in ("bf16", "int8"):
+            args = k3_exact_flat(x, dtype, gen) + (q,)
+            s_all, i_all = scan_topk_plain(*args, n, "l2")
+            for k in K3_KS + (K3_ADV_PAGED,):
+                s, i = scan_topk(*args, k, "l2")
+                ws, wi = k3_mod.merge_splits(s_all[:, None], i_all[:, None], k)
+                torch.cuda.synchronize()
+                if not (torch.equal(s, ws) and torch.equal(i, wi)):
+                    raise AssertionError(
+                        f"K3 {name} {dtype} k={k}: {int((i != wi).sum())} "
+                        "ids differ from plain in (score, id) order")
+                plan = k3_mod.plan_for(args[0], b, min(k, k3_mod.K_MAX))
+                rows.append(dict(case=f"{name} {dtype} k={k}",
+                                 shape=[b, n, dim, k], max_abs_err=0.0,
+                                 path=plan.path))
+                say(f"[K3 scan_topk] adversarial {name} {dtype} l2 B={b} "
+                    f"N={n} D={dim} k={k} (plan {plan.path} qt={plan.qt} "
+                    f"buf={plan.buf}, "
+                    f"{-(-k // k3_mod.K_MAX)} page(s)): equal to plain in "
+                    f"(score, id) order, bit for bit")
+            del args, s_all, i_all
     return rows
 
 

@@ -10,14 +10,19 @@ copy's wgmma kernel (the shipped source is never changed): per block, lane
 producer warp the time it issued its last item and the `clock64` cycles it
 waited on empty slots, and warp 0 (queries 0-15 of warpgroup 0) the cycles
 it spent waiting on full slots, in wgmma's wait, in the epilogue (and its
-slow path, where a score is below its threshold, and the merges in it), in
-waiting for and reading a tile's side data and releasing its items
-(`release`), in its whole tile loop, with its counts of slow-path
-entries and merges; warp 4 (warpgroup 1) its end time.  The copy's library
-is built there and launched through the copy's own wrapper, on main's data
-shapes (`clustered_device` 1,003,520 x 128, 400 clusters, seed 7): the kNN
-table's block (its first 8192 rows as queries, k = 97) and the flat batch
-(8192 queries, k = 32), each as planned.
+candidate path, `slow`: a tile where a score is below its threshold, from
+the compare to the queues and any flush; the flushes of its queues to the
+buffers, `flush`, merges included; the merges), in waiting for and reading
+a tile's side data and releasing its items (`release`), in its whole tile
+loop, with its counts of tiles on the candidate path (`slow_entries`),
+flushes, tiles with a flush (`flush_tiles`) and merges; warp 4
+(warpgroup 1) its end time.  The copy's library is built there and
+launched through the copy's own wrapper: on main's data shapes
+(`clustered_device` 1,003,520 x 128, 400 clusters, seed 7) the kNN table's
+block (its first 8192 rows as queries, k = 97) and the flat batch (8192
+queries, k = 32), l2; on glove's (1,183,514 x 100 unit rows, 473 clusters,
+seed 7: 200-byte rows, the `cp.async` producer) D1's flat batch (8192
+queries, k = 32), cosine; each as planned.
 
 For each case the report gives the event time of a cold call (a 128 MiB
 buffer read first) and, over the blocks of one more cold call, quantiles
@@ -40,20 +45,21 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SLOTS = 16
+SLOTS = 20
 #: where each counter goes in a block's row of SLOTS
 FIELDS = {"start": 0, "smid": 1, "producer_end": 2, "producer_empty_wait": 3,
           "wg0_end": 4, "full_wait": 5, "wgmma_wait": 6, "epilogue": 7,
           "slow": 8, "merges": 9, "slow_entries": 10, "loop": 11,
-          "wg1_end": 12, "release": 13, "tiles": 14, "merge": 15}
+          "wg1_end": 12, "release": 13, "tiles": 14, "merge": 15,
+          "flush": 16, "flushes": 17, "flush_tiles": 18}
 #: (old, new) source edits that put the counters in; each must fit once
 STAMPS = (
     ("namespace scan_topk {\nnamespace {\n",
      "namespace scan_topk {\n"
-     "__device__ unsigned long long k3_tl[8192 * 16];\n"
+     "__device__ unsigned long long k3_tl[8192 * 20];\n"
      "namespace {\n"
      "__device__ __forceinline__ unsigned long long* k3_row() {\n"
-     "  return k3_tl + 16 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
+     "  return k3_tl + 20 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
      "}\n"),
     ("  __syncthreads();  // every barrier set before any arrival\n",
      "  __syncthreads();  // every barrier set before any arrival\n"
@@ -76,21 +82,35 @@ STAMPS = (
     ("  const float coef = a.l2 ? 2.f : 1.f;\n",
      "  const float coef = a.l2 ? 2.f : 1.f;\n"
      "  unsigned long long c_full = 0, c_wait = 0, c_epi = 0, c_slow = 0,\n"
-     "      n_merge = 0, n_slow = 0, c_rel = 0, c_merge = 0;\n"),
-    ("      merge_rank(lists + row * lstride, a.kcap, min(c, BUF), lane);",
+     "      n_merge = 0, n_slow = 0, c_rel = 0, c_merge = 0, c_flush = 0,\n"
+     "      n_flush = 0, n_tflush = 0;\n"),
+    ("      merge_rank(lists + (lrow0 + r8 + 8 * h) * lstride, a.kcap, c, "
+     "lane);\n",
      "      { const long long c0 = clock64();\n"
-     "        merge_rank(lists + row * lstride, a.kcap, min(c, BUF), lane);\n"
+     "        merge_rank(lists + (lrow0 + r8 + 8 * h) * lstride, a.kcap, c, "
+     "lane);\n"
      "        c_merge += clock64() - c0; }\n"
-     "      ++n_merge;"),
-    ("    if (!__any_sync(0xffffffffu, mn0 < th[0] || mn1 < th[1])) "
-     "return;",
-     "    if (!__any_sync(0xffffffffu, mn0 < th[0] || mn1 < th[1])) "
-     "return;\n"
+     "      ++n_merge;\n"),
+    ("  auto flush = [&]() {\n",
+     "  auto flush = [&]() {\n"
+     "    const long long cf0 = clock64();\n"
+     "    ++n_flush;\n"),
+    ("    __syncwarp();  // the buffers written before any merge reads them\n"
+     "  };\n",
+     "    __syncwarp();  // the buffers written before any merge reads them\n"
+     "    c_flush += clock64() - cf0;\n"
+     "  };\n"),
+    ("                          (last && qn_[0] + qn_[1] > 0)))\n"
+     "      return;\n",
+     "                          (last && qn_[0] + qn_[1] > 0)))\n"
+     "      return;\n"
      "    ++n_slow;\n"
-     "    const long long cs0 = clock64();"),
-    ("                << x;\n      }\n    }\n  };",
-     "                << x;\n      }\n    }\n"
-     "    c_slow += clock64() - cs0;\n  };"),
+     "    const long long cs0 = clock64();\n"
+     "    const unsigned long long nf0 = n_flush;\n"),
+    ("      pend = still;\n    }\n  };\n",
+     "      pend = still;\n    }\n"
+     "    c_slow += clock64() - cs0;\n"
+     "    n_tflush += n_flush != nf0;\n  };\n"),
     ("  for (int t = 0; t < ntiles; ++t) {\n    wgmma_fence();",
      "  const long long ctot0 = clock64();\n"
      "  for (int t = 0; t < ntiles; ++t) {\n    wgmma_fence();"),
@@ -108,7 +128,8 @@ STAMPS = (
      "    c_rel += clock64() - cr0;\n"
      "    { const long long c0 = clock64(); epilogue(acc, bias, rsc, t); "
      "c_epi += clock64() - c0; }"),
-    ("  // every buffer in, then this warp's 16 lists out\n",
+    ("  // every buffer in (the last tile emptied the queues), then this "
+     "warp's\n",
      "  if (lane == 0 && (warp == 0 || warp == 4)) {\n"
      "    unsigned long long* r = k3_row();\n"
      "    if (warp == 4) {\n"
@@ -117,14 +138,16 @@ STAMPS = (
      "      r[4] = globaltimer(); r[5] = c_full; r[6] = c_wait;\n"
      "      r[7] = c_epi; r[8] = c_slow; r[9] = n_merge; r[10] = n_slow;\n"
      "      r[11] = clock64() - ctot0; r[13] = c_rel; r[14] = ntiles;\n"
-     "      r[15] = c_merge;\n"
+     "      r[15] = c_merge; r[16] = c_flush; r[17] = n_flush;\n"
+     "      r[18] = n_tflush;\n"
      "    }\n"
      "  }\n"
-     "  // every buffer in, then this warp's 16 lists out\n"),
+     "  // every buffer in (the last tile emptied the queues), then this "
+     "warp's\n"),
     ("int wgmma_dispatch(int op, int dtype",
      "}  // namespace scan_topk\n"
      "extern \"C\" int ohnsw_k3_timeline(void* out, int clear) {\n"
-     "  static unsigned long long zeros[8192 * 16];\n"
+     "  static unsigned long long zeros[8192 * 20];\n"
      "  return static_cast<int>(clear ? cudaMemcpyToSymbol(\n"
      "      scan_topk::k3_tl, zeros, sizeof zeros) : cudaMemcpyFromSymbol(\n"
      "      out, scan_topk::k3_tl, sizeof zeros));\n"
@@ -132,8 +155,14 @@ STAMPS = (
      "namespace scan_topk {\n"
      "int wgmma_dispatch(int op, int dtype"),
 )
-#: (label, queries: "rows" = the first 8192 rows, else drawn; k)
-CASES = (("kNN block", "rows", 97), ("flat batch", "drawn", 32))
+#: (label, data: "sift" = main's rows, "glove" = glove's; queries: "rows"
+#: = the first 8192 rows, else drawn; k)
+CASES = (("kNN block", "sift", "rows", 97),
+         ("flat batch", "sift", "drawn", 32),
+         ("D1 flat batch", "glove", "drawn", 32))
+#: (rows, D, clusters, metric) of each data shape
+DATA = {"sift": (1_003_520, 128, 400, "l2"),
+        "glove": (1_183_514, 100, 473, "cosine")}
 
 
 def stamped(src: str) -> str:
@@ -159,13 +188,16 @@ def summarize(rows) -> dict:
     out = {f"{k}_us": q((rows[:, FIELDS[k]] - t0) / 1e3)
            for k in ("start", "producer_end", "wg0_end", "wg1_end")}
     parts = ("full_wait", "wgmma_wait", "release", "epilogue", "slow",
-             "merge", "loop", "producer_empty_wait")
+             "flush", "merge", "loop", "producer_empty_wait")
     out.update({f"{k}_Mcycles": q(rows[:, FIELDS[k]] / 1e6) for k in parts})
     named = sum(rows[:, FIELDS[k]] for k in ("full_wait", "wgmma_wait",
                                              "release", "epilogue"))
     out["other_Mcycles"] = q((rows[:, FIELDS["loop"]] - named) / 1e6)
-    out.update({k: q(rows[:, FIELDS[k]]) for k in ("tiles", "slow_entries",
-                                                  "merges")})
+    out.update({k: q(rows[:, FIELDS[k]]) for k in (
+        "tiles", "slow_entries", "flushes", "flush_tiles", "merges")})
+    # the share of warp 0's tiles in which it flushes
+    out["flush_tile_share"] = q(rows[:, FIELDS["flush_tiles"]]
+                                / np.maximum(rows[:, FIELDS["tiles"]], 1))
     out["sms"] = int(len(set(rows[:, FIELDS["smid"]].tolist())))
     return out
 
@@ -188,18 +220,27 @@ def _worker(out_path: str) -> None:
     lib.ohnsw_k3_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
     buf = np.zeros(8192 * SLOTS, np.uint64)
     flush = torch.zeros((128 << 20) // 4, device=dev)
-    x, make_queries = clustered_device(1_003_520, 128, n_clusters=400,
-                                       seed=7, device=dev)
-    flat = bulk_mod.flat_from_rows(x, "l2")
-    args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n)
-    drawn = make_queries(8192, qseed=9)
-    report = []
-    for label, which, k in CASES:
+    report, made = [], {}
+    for label, data, which, k in CASES:
+        n, d, clusters, metric = DATA[data]
+        if data not in made:
+            made.clear()
+            x, make_queries = clustered_device(n, d, n_clusters=clusters,
+                                               seed=7, device=dev)
+            if metric == "cosine":
+                x = x / torch.linalg.norm(x, dim=1, keepdim=True)
+            flat = bulk_mod.flat_from_rows(x, metric)
+            drawn = make_queries(8192, qseed=9)
+            if metric == "cosine":
+                drawn = drawn / torch.linalg.norm(drawn, dim=1, keepdim=True)
+            made[data] = (x, flat, drawn)
+        x, flat, drawn = made[data]
+        args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n)
         q = x[:8192] if which == "rows" else drawn
         plan = k3.plan_for(flat.scan, 8192, k)
 
         def call():
-            return k3.scan_topk(*args, q, k, "l2")
+            return k3.scan_topk(*args, q, k, metric)
 
         ms = time_ms(call, "read", 3, flush)
         lib.ohnsw_k3_timeline(None, 1)
@@ -210,7 +251,8 @@ def _worker(out_path: str) -> None:
         rows = buf.reshape(-1, SLOTS)[:plan.qtiles * plan.splits]
         report.append(dict(case=label, k=k, plan=dict(
             stages=plan.stages, buf=plan.buf, qt=plan.qt,
-            splits=plan.splits, qtiles=plan.qtiles), ms=ms,
+            producer=plan.producer, splits=plan.splits,
+            qtiles=plan.qtiles), ms=ms,
             **summarize(rows.astype(np.int64))))
     Path(out_path).write_text(json.dumps(report))
 

@@ -16,17 +16,20 @@ refined deg-16 payload (B = 4096, [1M, 16, 128]), K2 f32 l2 at (8192, 32), (8192
 phase B8's, (4096, 96) and (1024, 96), over the same rows stored int8,
 K2 int8 l2 at (8192, 32) over 1M x 96 rows (deep10m's width), and K3
 (`scan_topk`) at the kNN table's block (8192 of the rows as queries, k =
-97) and the flat batch (8192 queries, k = 32) over 1M x 128 bf16 rows,
-G1's int8 kNN block over the same rows stored int8, and D2's flat batch
-(8192 queries, k = 32) over 10M x 96 int8 rows; K3 only with the L2
-flushed by a read, `K3_REPS` reps.  The processes run in turns (other,
+97), the flat batch (8192 queries, k = 32) and the k = 256 batch (lists
+of 256) over 1M x 128 bf16 rows, G1's int8 kNN block over the same rows
+stored int8, D1's cosine flat batch (8192 queries, k = 32) over
+1,183,514 x 100 bf16 rows (200-byte rows: the `cp.async` producer) and
+D2's flat batch (8192 queries, k = 32) over 10M x 96 int8 rows; K3 only
+with the L2 flushed by a read, `K3_REPS` reps.  The processes run in turns (other,
 this, this, other) so that drift of the card shows; a result is the median
 over both turns of each checkout.
 
 Each process also keeps one call's output per case: the report says
-whether the two checkouts' outputs are bit-equal (K3 over bf16 rows: its
-scores within the f32 summation bound of the other's, as the two kernels
-sum the product in other orders; `k3_within_bound`), and counts the
+whether the two checkouts' outputs are bit-equal (K3 over bf16 rows, if
+not: whether its scores are within the f32 summation bound of the
+other's, as two kernels that sum the product in other orders are;
+`k3_within_bound`), and counts the
 int->float conversion instructions (`I2F`, `I2FP`) in each checkout's
 built kernels by `cuobjdump -sass`.
 
@@ -74,11 +77,14 @@ K2_INT8_WIDE_SHAPES = ((4096, 96), (1024, 96))
 INT8_ROWS, INT8_DIM, K2_INT8_SHAPE = 1_000_000, 96, (8192, 32)
 K1_INT4_B = 4096
 K1_DEG16_B, DEG16 = 4096, 16
-#: K3: (label, queries, k, scan dtype, rows, D); main's shapes, G1's, D2's
-K3_CASES = (("kNN block", 8192, 97, "bf16", N_ROWS, DIM),
-            ("flat batch", 8192, 32, "bf16", N_ROWS, DIM),
-            ("int8 kNN block", 8192, 97, "int8", N_ROWS, DIM),
-            ("int8 flat batch D2", 8192, 32, "int8", 10_002_432, 96))
+#: K3: (label, queries, k, scan dtype, rows, D, metric); main's shapes,
+#: G1's, D1's, D2's
+K3_CASES = (("kNN block", 8192, 97, "bf16", N_ROWS, DIM, "l2"),
+            ("flat batch", 8192, 32, "bf16", N_ROWS, DIM, "l2"),
+            ("k=256 batch", 8192, 256, "bf16", N_ROWS, DIM, "l2"),
+            ("int8 kNN block", 8192, 97, "int8", N_ROWS, DIM, "l2"),
+            ("flat batch D1", 8192, 32, "bf16", 1_183_514, 100, "cosine"),
+            ("int8 flat batch D2", 8192, 32, "int8", 10_002_432, 96, "l2"))
 K3_REPS = 5
 MODES = ("warm", "read", "write", "enqueue")
 THIS = Path(__file__).resolve().parents[2]
@@ -318,16 +324,19 @@ def k3_cases(case, dev, g) -> None:
     from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import scan_topk
 
     flats = {}
-    for label, b, k, dtype, n, d in K3_CASES:
-        if (dtype, n, d) not in flats:
+    for label, b, k, dtype, n, d, metric in K3_CASES:
+        if (dtype, n, d, metric) not in flats:
             flats.clear()
             rows = torch.randn((n, d), device=dev, generator=g)
-            flats[(dtype, n, d)] = (rows[:b].clone(), bulk_mod.flat_from_rows(
-                rows, "l2", scan_dtype=dtype))
+            flats[(dtype, n, d, metric)] = (
+                rows[:b].clone(),
+                bulk_mod.flat_from_rows(rows, metric, scan_dtype=dtype))
             del rows
-        base, flat = flats[(dtype, n, d)]
+        base, flat = flats[(dtype, n, d, metric)]
         q = base if "kNN" in label else torch.randn((b, d), device=dev,
                                                     generator=g)
+        if metric == "cosine":
+            q = q / torch.linalg.norm(q, dim=1, keepdim=True)
         args = (flat.scan, flat.scales, flat.norms, flat.deleted, flat.n, q)
         row = d * flat.scan.element_size() + 5 + (4 if dtype == "int8" else 0)
         extra = ()
@@ -337,8 +346,8 @@ def k3_cases(case, dev, g) -> None:
             qn = torch.linalg.norm(q.to(torch.bfloat16).float(), dim=1)
             extra = (4 * d * 2.0 ** -24 * qn * xmax,)
         case(f"scan_topk {label}", [b, n, d, k], n * row + b * d * 4
-             + b * k * 12, lambda: scan_topk(*args, k, "l2"), modes=("read",),
-             n_reps=K3_REPS, extra=extra)
+             + b * k * 12, lambda: scan_topk(*args, k, metric),
+             modes=("read",), n_reps=K3_REPS, extra=extra)
     flats.clear()
 
 
@@ -359,10 +368,11 @@ def k3_within_bound(a, b) -> bool:
     return float(shared.sum()) >= 0.999 * float(fin.sum())
 
 
-def _compare(dumps: dict[str, list[str]]) -> dict[str, bool]:
+def _compare(dumps: dict[str, list[str]]) -> dict[str, str]:
     """Per case: are the first turn's outputs of both checkouts bit-equal
-    (K3 over bf16 rows: within its f32 bound, `k3_within_bound`), and each
-    checkout's two turns equal to each other?"""
+    (K3 over bf16 rows, if not: within its f32 bound, `k3_within_bound`),
+    and each checkout's two turns equal to each other?  A verdict per
+    case: "bit-equal", "within the f32 bound" or "DIFFER"."""
     import torch
 
     got = {who: [torch.load(f) for f in files] for who, files in dumps.items()}
@@ -370,9 +380,12 @@ def _compare(dumps: dict[str, list[str]]) -> dict[str, bool]:
     for key in got["this"][0]:
         a, b = got["this"][0][key], got["other"][0][key]
         if key.startswith("scan_topk") and len(a) == 3:
-            same[key] = k3_within_bound(a, b)
+            same[key] = ("bit-equal" if all(
+                torch.equal(x, y) for x, y in zip(a[:2], b[:2])) else
+                "within the f32 bound" if k3_within_bound(a, b) else "DIFFER")
             continue
-        same[key] = all(torch.equal(x, y) for x, y in zip(a, b))
+        same[key] = "bit-equal" if all(
+            torch.equal(x, y) for x, y in zip(a, b)) else "DIFFER"
         for who in got:
             if not all(torch.equal(x, y) for x, y in
                        zip(got[who][0][key], got[who][1][key])):
@@ -438,7 +451,7 @@ def main() -> int:
                    this_ms=statistics.median(by["this"]),
                    other_turns=by["other"], this_turns=by["this"])
         if f"{kernel} {list(shape)}" in same:
-            row["bit_equal"] = same[f"{kernel} {list(shape)}"]
+            row["outputs"] = same[f"{kernel} {list(shape)}"]
         table.append(row)
         print(f"[race] {kernel} {list(shape)} {mode:7s} bound "
               f"{bound_ms * 1e3:6.1f} us  other {row['other_ms'] * 1e3:7.1f} us"
@@ -446,18 +459,15 @@ def main() -> int:
               f"{row['this_ms'] * 1e3:7.1f} us ({bound_ms / row['this_ms']:.0%})"
               f"  turns other {[round(t * 1e3, 1) for t in by['other']]} "
               f"this {[round(t * 1e3, 1) for t in by['this']]}")
-    for key, eq in same.items():
-        kind = ("within the f32 bound" if key.startswith("scan_topk")
-                and "int8" not in key else "bit-equal")
-        print(f"[race] outputs {key}: {kind if eq else 'DIFFER'} between "
-              f"the checkouts")
+    for key, verdict in same.items():
+        print(f"[race] outputs {key}: {verdict} between the checkouts")
     for who, counts in sass.items():
         for kernel, c in counts.items():
             print(f"[race] sass {who} {kernel}: {json.dumps(c)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=smi, rows=table, bit_equal=same, sass=sass), indent=1))
+            card=smi, rows=table, outputs=same, sass=sass), indent=1))
     return 0
 
 

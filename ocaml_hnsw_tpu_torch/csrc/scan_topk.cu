@@ -35,10 +35,17 @@
 // plan) the 32 GB it moves take ~4.7 ms at the ~6.8 TB/s L2 gave on an
 // H100, twice the product's bound; the wgmma block fetches a tile for 128
 // queries (a model of the bytes: no L2 counter was read).  Measured per block
-// (bench/k3_timeline.py), the wgmma block spends its time in its epilogue,
-// the compares and appends of a warp whose 16 queries hold a score below
-// their threshold in ~45% of the kNN block's tiles, which its warpgroup
-// waits for at the next tile's collective wgmma (PERF.md §6).
+// (bench/k3_timeline.py, PERF.md §6): a warp's 16 queries hold a score
+// below their threshold in ~47% of the kNN block's tiles, and its
+// warpgroup waits for that warp at the next tile's collective wgmma.
+// Since the candidates wait in register queues, that path takes 4.5M of
+// warp 0's 23.5M loop cycles (its 566 merges 1.4M of them; it took 10.0M
+// of 33.2M with an atomic append per candidate), and what bounds the
+// block next is the issue of the products with the wait at the aligned
+// wgmma for the warpgroup's slowest warp (10.3M), the ring's full-slot
+// waits (3.4M: four items, two tiles) and the side data (2.9M).  D1's
+// batch (200-byte rows) is bound by its cp.async producer: warp 0 waits
+// 23.2M of its 43.4M cycles for items.
 //
 // Two paths, chosen by shape (launch_plan, never after an error):
 //
@@ -73,19 +80,28 @@
 //     an H100).  (A cluster of two
 //     blocks sharing each fetch by TMA multicast, 256 queries per fetch,
 //     was slower at the main shapes: PERF.md §6.)
-//   * Merges local to their warp: the epilogue makes each score in
-//     registers from the accumulators, compares it with its query's
-//     threshold, held in registers (each thread has two queries), and
-//     appends those below to the query's buffer of 16 or 32 entries in
-//     shared memory (one shared atomic per lane and query for the slots);
-//     a full buffer is merged into the query's sorted list in registers
-//     (merge_rank: each entry's place is its rank in the list, by binary
-//     search, plus its rank in the other side).  A query's scores of a
-//     tile lie in one warp (wgmma's accumulator layout), so a merge
-//     synchronises only that warp (__syncwarp; the warpgroup's own named
-//     barrier, bar.sync 1 + wg, 128, orders the staging of its query
-//     tile): no merge stops the producer or the other warpgroup, and none
-//     uses __syncthreads.
+//   * Candidates queued in registers, merges local to their warp: the
+//     epilogue makes each score in registers from the accumulators and
+//     compares it with its query's threshold, held in registers (each
+//     thread has two queries).  A score below it joins the thread's
+//     queue for that query, 4 (score, id) in registers, by register
+//     moves: no shared memory, no atomic, so a tile's cost follows its
+//     candidates.  Only when a score finds its queue full (and on a
+//     split's last tile) does the
+//     warp flush: the four lanes of a query take their slots in its
+//     buffer of 16 or 32 entries in shared memory by a prefix sum of
+//     their counts (shuffles); a buffer that would overflow is first
+//     merged into the query's sorted list in registers (merge_rank: a
+//     buffer entry's place is its rank in the list, by binary search,
+//     plus its rank in the buffer; the list's entries fill the other
+//     places, found from a bitmask of the buffer's), and the queued
+//     entries are then held against the lowered threshold in (score, id)
+//     order.  A query's
+//     scores of a tile lie in one warp (wgmma's accumulator layout), so a
+//     flush or merge synchronises only that warp (__syncwarp; the
+//     warpgroup's own named barrier, bar.sync 1 + wg, 128, orders the
+//     staging of its query tile): none stops the producer or the other
+//     warpgroup, and none uses __syncthreads.
 //   * Overlap: the two consumer warpgroups ping-pong on the tensor cores;
 //     each issues a tile's products (wgmma.commit_group, wait_group 0),
 //     releases its items and runs the tile's epilogue while the other's

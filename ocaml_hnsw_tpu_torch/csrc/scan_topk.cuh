@@ -67,46 +67,52 @@ __device__ __forceinline__ bool before(uint2 x, uint2 y) {
 // One warp merges a query's buffer (its first c <= 32 entries, right after
 // the list) into its sorted list of kcap (32..256) entries, in registers:
 // each buffer entry's place is its rank in the list (a binary search) plus
-// its rank in the buffer; each list entry i moves right by the number of
-// buffer entries before it, those with a rank in the list <= i.  Places
-// past kcap drop out.  (score, id) keys are distinct, so the places are.
+// its rank in the buffer; the list's entries keep their order and fill
+// the other places, so place s takes list entry s - (buffer entries placed
+// before s), counted from a bitmask of the buffer's places per 32 places
+// (one __reduce_or_sync each).  Places past kcap drop out.  (score, id)
+// keys are distinct, so the places are.
 __device__ __forceinline__ void merge_rank(uint2* list, int kcap, int c,
                                            int lane) {
   const uint2 empty = make_uint2(kInfBits, 0xffffffffu);
   const uint2 b = lane < c ? list[kcap + lane] : empty;
-  int rb = 0;  // buffer entries before b
-  for (int i = 0; i < c; ++i) {
-    const uint2 o = make_uint2(__shfl_sync(0xffffffffu, b.x, i),
-                               __shfl_sync(0xffffffffu, b.y, i));
-    rb += before(o, b);
-  }
   int lo = 0, hi = kcap;  // list entries before b: [0, lo)
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (before(list[mid], b)) lo = mid + 1;
     else hi = mid;
   }
+  int rb = 0;  // buffer entries before b
+#pragma unroll 4
+  for (int i = 0; i < c; ++i) {
+    const uint2 o = make_uint2(__shfl_sync(0xffffffffu, b.x, i),
+                               __shfl_sync(0xffffffffu, b.y, i));
+    rb += before(o, b);
+  }
+  const int at = lane < c ? lo + rb : kcap;  // b's place
   constexpr int kMaxPer = kMaxKcap / 32;
   const int per = kcap >> 5;
   uint2 keep[kMaxPer];
-  int shift[kMaxPer];
+  int src[kMaxPer];  // the list entry that lands on place lane + 32 m
+  int placed = 0;    // buffer entries placed before this 32-place window
 #pragma unroll
   for (int m = 0; m < kMaxPer; ++m) {
-    shift[m] = 0;
-    if (m < per) keep[m] = list[lane + 32 * m];
-  }
-  for (int i = 0; i < c; ++i) {
-    const int lb = __shfl_sync(0xffffffffu, lo, i);
-#pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) shift[m] += lb <= lane + 32 * m;
+    src[m] = -1;
+    if (m < per) {
+      const uint32_t mask = __reduce_or_sync(
+          0xffffffffu, at >> 5 == m ? 1u << (at & 31) : 0u);
+      if (!((mask >> lane) & 1)) {
+        src[m] = lane + 32 * m - placed - __popc(mask & ((1u << lane) - 1));
+        keep[m] = list[src[m]];
+      }
+      placed += __popc(mask);
+    }
   }
   __syncwarp();  // every read of the list done
 #pragma unroll
-  for (int m = 0; m < kMaxPer; ++m) {
-    const int at = lane + 32 * m + shift[m];
-    if (m < per && at < kcap) list[at] = keep[m];
-  }
-  if (lane < c && lo + rb < kcap) list[lo + rb] = b;
+  for (int m = 0; m < kMaxPer; ++m)
+    if (src[m] >= 0) list[lane + 32 * m] = keep[m];
+  if (at < kcap) list[at] = b;
   __syncwarp();
 }
 

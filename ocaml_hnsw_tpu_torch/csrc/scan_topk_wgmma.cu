@@ -26,11 +26,19 @@
 //     tensor cores.
 //   * The epilogue turns the accumulators into scores in registers and
 //     compares them with the two thresholds each thread holds in
-//     registers.  A query's 64 scores of a tile lie in one warp (wgmma's
-//     accumulator layout), so appends to its buffer and merges of full
-//     buffers (merge_rank, in registers) synchronise that warp alone
-//     (__syncwarp): a merge stalls its own warpgroup (through wgmma's
-//     aligned issue) and nothing else.
+//     registers.  A score below its threshold joins its thread's queue
+//     for that query: kQueue (score, id) in registers, filled by register
+//     moves, with no shared memory and no atomic, so a tile with
+//     candidates costs a few instructions per candidate.  The warp
+//     flushes only when a score finds its queue full, and on the split's
+//     last tile: the four lanes of a query take their slots in its
+//     buffer by a prefix sum of their counts (shuffles), and only a buffer
+//     that would overflow is merged first (merge_rank, in registers),
+//     after which each queued entry is held against the lowered threshold.
+//     A query's 64 scores of a tile lie in one warp (wgmma's accumulator
+//     layout), so flushes and merges synchronise that warp alone
+//     (__syncwarp): they stall its own warpgroup (through wgmma's aligned
+//     issue) and nothing else.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -50,6 +58,11 @@ constexpr int kRT = 64;               // rows per tile (wgmma N)
 constexpr int kItem = kRT * kChunk;   // bytes of one ring item
 constexpr int kMaxStages = 16;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// (score, id) a consumer thread queues in registers per query before its
+// warp flushes them to the buffers: 4 timed best at lists of 32, 128 and
+// 256 (2 and 8 slower; PERF.md §6).  Four lanes share a query, so a
+// 16-entry buffer takes their queues once merged
+constexpr int kQueue = 4;
 // a wait on an mbarrier longer than this is a fault of the kernel: trap
 // (an error at the next synchronise) rather than hang the card
 constexpr unsigned long long kWaitLimitNs = 2000000000ull;
@@ -63,9 +76,9 @@ constexpr int kSideSlots = 2 * kSideWarps;
 // `total`): the ring's items, the wgs warpgroups' query tiles (both
 // 1024-byte aligned for the 128-byte swizzle), the side ring's slots, the
 // ring's full and empty barriers, then the side ring's, the lists and
-// buffers, the buffer counts.
+// buffers.
 struct Layout {
-  int ring, qa, side, bars, sbars, lists, cnt, total;
+  int ring, qa, side, bars, sbars, lists, total;
 };
 
 __host__ __device__ inline Layout layout(int stages, int nchunks, int kcap,
@@ -77,8 +90,7 @@ __host__ __device__ inline Layout layout(int stages, int nchunks, int kcap,
   l.bars = l.side + kSideSlots * kRT * 4 * (int8 ? 2 : 1);
   l.sbars = l.bars + 2 * stages * 8;
   l.lists = l.sbars + 2 * kSideSlots * 8;
-  l.cnt = l.lists + wgs * kQW * (kcap + buf) * 8;
-  l.total = l.cnt + wgs * kQW * 4;
+  l.total = l.lists + wgs * kQW * (kcap + buf) * 8;
   return l;
 }
 
@@ -313,13 +325,31 @@ __device__ __forceinline__ void side_warp(const Args& a, uint8_t* smem,
   }
 }
 
+// v[x] for a thread's own index x < 32, by a tree of selects: an index
+// into registers that is not a constant would put v in local memory
+__device__ __forceinline__ float pick(const float (&v)[32], int x) {
+  float a[16], b[8], c[4], d[2];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = (x & 1) ? v[2 * i + 1] : v[2 * i];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = (x & 2) ? a[2 * i + 1] : a[2 * i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = (x & 4) ? b[2 * i + 1] : b[2 * i];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) d[i] = (x & 8) ? c[2 * i + 1] : c[2 * i];
+  return (x & 16) ? d[1] : d[0];
+}
+
 template <bool kInt8, bool kBound, int BUF, int WGS>
 __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
                                         const Layout& L, int nchunks,
                                         int side_bytes) {
+  // a query's buffer, once merged, takes what its four lanes' queues hold
+  static_assert(4 * kQueue <= BUF, "queues deeper than a quarter buffer");
   using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr unsigned kAll = 0xffffffffu;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform
+  const int warp = __shfl_sync(kAll, tid >> 5, 0);  // warp-uniform
   const int wg = warp >> 2, q4 = lane & 3, rq = lane >> 2;
   const uint32_t base = smem_u32(smem);
   const uint32_t full0 = base + L.bars, empty0 = full0 + 8 * a.stages;
@@ -331,14 +361,12 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
   const int lrow0 = wg * kQW + (warp & 3) * 16;  // this warp's 16 queries
   const int lstride = a.kcap + BUF;
   uint2* lists = reinterpret_cast<uint2*>(smem + L.lists);
-  int* cnt = reinterpret_cast<int*>(smem + L.cnt);  // entries per buffer
 
-  // empty lists, empty buffers
+  // empty lists
   const uint2 empty = make_uint2(kInfBits, 0xffffffffu);
   const int kshift = __ffs(a.kcap) - 1;
   for (int u = lane; u < 16 * a.kcap; u += 32)
     lists[(lrow0 + (u >> kshift)) * lstride + (u & (a.kcap - 1))] = empty;
-  if (lane < 16) cnt[lrow0 + lane] = 0;
   // this warpgroup's query tile, each 128-byte chunk as TMA's 128-byte
   // swizzle lays it out (rows past B zero)
   uint8_t* qa = smem + L.qa + wg * nchunks * kItem;
@@ -388,25 +416,119 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
       }
     }
   };
-  // the warp merges each of its queries' buffers holding >= least entries
-  // (a count past BUF: the buffer is full and some scores wait)
-  auto merge_rows = [&](int least) {
-    for (int r = 0; r < 16; ++r) {
-      const int row = lrow0 + r;
-      const int c = cnt[row];
-      if (c < least) continue;
-      merge_rank(lists + row * lstride, a.kcap, min(c, BUF), lane);
-      if (lane == 0) cnt[row] = 0;
-    }
-    __syncwarp();
+  // (s, j) before query h's threshold in (score, id) order
+  auto before_th = [&](float s, uint32_t j, int h) {
+    return s < th[h] || (s == th[h] && j < thi[h]);
   };
-  // tile t's scores against the thresholds; those below go to their
-  // query's buffer, full buffers are merged until every one is in.
+
+  // The candidate path.  Each thread queues, per query, up to kQueue
+  // (score, id) in registers (qs_, qi_: slot 0 the newest, qn_ of them
+  // held); the buffer behind a query holds bc_ entries, a count its four
+  // lanes share.
+  float qs_[2][kQueue];
+  uint32_t qi_[2][kQueue];
+  int qn_[2] = {0, 0}, bc_[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int s = 0; s < kQueue; ++s) {
+      qs_[h][s] = __uint_as_float(kInfBits);
+      qi_[h][s] = 0;
+    }
+  // the buffer of each query whose flag fh is set merged into its list:
+  // query h of lanes 4 r8 .. 4 r8 + 3 (row r8 + 8 h of the warp's 16) is
+  // bit 4 r8 + h of the ballot.  One call site of merge_rank: the block's
+  // code stays small enough for the instruction cache.
+  auto merge_flagged = [&](bool f0, bool f1) {
+    for (uint32_t m = __ballot_sync(kAll, q4 == 0 ? f0 : q4 == 1 && f1); m;
+         m &= m - 1) {
+      const int r8 = (__ffs(m) - 1) >> 2, h = (__ffs(m) - 1) & 1;
+      const int c = __shfl_sync(kAll, h ? bc_[1] : bc_[0], 4 * r8);
+      merge_rank(lists + (lrow0 + r8 + 8 * h) * lstride, a.kcap, c, lane);
+      if (rq == r8) {
+        if (h) bc_[1] = 0;
+        else bc_[0] = 0;
+      }
+    }
+  };
+  // The warp empties every queue into its query's buffer: the four lanes
+  // of a query take their slots by a prefix sum of their counts.  A buffer
+  // that would overflow is merged first; the thresholds then fall, and
+  // each queued entry goes on only if it is before its query's new one.
+  auto flush = [&]() {
+    uint32_t keep[2];  // bit s: slot s of the queue goes to the buffer
+    int pre[2], tot[2];
+    auto count = [&]() {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = __popc(keep[h]);
+        int v = n, u = __shfl_up_sync(kAll, v, 1, 4);
+        if (q4 >= 1) v += u;
+        u = __shfl_up_sync(kAll, v, 2, 4);
+        if (q4 >= 2) v += u;
+        pre[h] = v - n;
+        tot[h] = __shfl_sync(kAll, v, 3, 4);
+      }
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) keep[h] = (1u << qn_[h]) - 1;
+    count();
+    const bool over0 = bc_[0] + tot[0] > BUF, over1 = bc_[1] + tot[1] > BUF;
+    if (__any_sync(kAll, over0 || over1)) {
+      merge_flagged(over0, over1);
+      read_thresholds();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int s = 0; s < kQueue; ++s)
+          if (!before_th(qs_[h][s], qi_[h][s], h)) keep[h] &= ~(1u << s);
+      count();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint2* dst = lists + (lrow0 + rq + 8 * h) * lstride + a.kcap +
+                   bc_[h] + pre[h];
+#pragma unroll
+      for (int s = 0; s < kQueue; ++s)
+        if ((keep[h] >> s) & 1)
+          *dst++ = make_uint2(__float_as_uint(qs_[h][s]), qi_[h][s]);
+      bc_[h] += tot[h];
+      qn_[h] = 0;
+    }
+    __syncwarp();  // the buffers written before any merge reads them
+  };
+  // The scores of pend (bit x: sv[x]) join their queries' queues while
+  // there is room, by register moves; what finds none stays in pend.
+  auto enqueue = [&](const float(&sv)[32], uint32_t& pend, int jt) {
+    for (uint32_t p = pend; p; p &= p - 1) {
+      const int x = __ffs(p) - 1, h = (x >> 1) & 1;
+      if ((h ? qn_[1] : qn_[0]) == kQueue) continue;
+      const float s = pick(sv, x);
+      const uint32_t j = jt + 8 * (x >> 2) + (x & 1);
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        if (g == h) {
+#pragma unroll
+          for (int i = kQueue - 1; i > 0; --i) {
+            qs_[g][i] = qs_[g][i - 1];
+            qi_[g][i] = qi_[g][i - 1];
+          }
+          qs_[g][0] = s;
+          qi_[g][0] = j;
+          ++qn_[g];
+        }
+      pend &= ~(1u << x);
+    }
+  };
+  // tile t's scores against the thresholds; those below join the queues,
+  // and the warp flushes only while some score finds its queue full, and
+  // on the split's last tile until every queue is empty.
   // acc[x], sv[x]: query h = (x >> 1) & 1, column 8 (x >> 2) + 2 q4 +
   // (x & 1).  The scores go to registers of their own: read in divergent
   // code, the accumulators would make ptxas put warpgroup-wide waits there.
   auto epilogue = [&](const Acc(&acc)[32], const float(&bias)[16],
                       const float(&rsc)[16], int t) {
+    const bool last = t == ntiles - 1;
     const int jt = split0 + t * kRT + 2 * q4;
     float sv[32];
     float mn0 = __uint_as_float(kInfBits), mn1 = mn0;
@@ -423,14 +545,15 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
       if (h) mn1 = fminf(mn1, sv[x]);
       else mn0 = fminf(mn0, sv[x]);
     }
-    if (!__any_sync(0xffffffffu, mn0 < th[0] || mn1 < th[1])) return;
+    if (!__any_sync(kAll, mn0 < th[0] || mn1 < th[1] ||
+                          (last && qn_[0] + qn_[1] > 0)))
+      return;
     // pend: the scores below the thresholds as the tile started (and
     // after the page's bound).  A strict compare is exact here: the
     // threshold's entry comes from an earlier tile, so a score equal to it
-    // has the higher id.  Each goes to its query's buffer, one atomic per
-    // lane and query for the slots; past the buffer's end it waits for a
-    // merge and is then checked against the lowered threshold in (score,
-    // id) order (an entry that merges past K is dropped there anyway).
+    // has the higher id.  A score that waits for a flush is then checked
+    // against the threshold as the flush left it, in (score, id) order (an
+    // entry that merges past K is dropped there anyway).
     uint32_t pend = 0;
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
@@ -442,41 +565,20 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
       }
       pend |= static_cast<uint32_t>(in_) << x;
     }
-    constexpr uint32_t kH0 = 0x33333333u;  // the bits of query h = 0
     while (true) {
-      int slot[2] = {0, 0};
+      enqueue(sv, pend, jt);
+      if (!__any_sync(kAll, pend != 0 || (last && qn_[0] + qn_[1] > 0)))
+        break;
+      flush();
+      uint32_t still = 0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t mine = pend & (h ? ~kH0 : kH0);
-        if (mine) slot[h] = atomicAdd(&cnt[lrow0 + rq + 8 * h], __popc(mine));
-      }
-      uint32_t retry = 0;
-#pragma unroll
-      for (int x = 0; x < 32; ++x) {
-        const int h = (x >> 1) & 1;
-        if ((pend >> x) & 1) {
-          if (slot[h] < BUF)
-            lists[(lrow0 + rq + 8 * h) * lstride + a.kcap + slot[h]] =
-                make_uint2(__float_as_uint(sv[x]), jt + 8 * (x >> 2) + (x & 1));
-          else
-            retry |= 1u << x;
-          ++slot[h];
-        }
-      }
-      if (!__any_sync(0xffffffffu, retry != 0)) break;
-      __syncwarp();
-      merge_rows(BUF);
-      read_thresholds();
-      pend = 0;
-#pragma unroll
-      for (int x = 0; x < 32; ++x) {
-        const int h = (x >> 1) & 1;
-        const uint32_t j = jt + 8 * (x >> 2) + (x & 1);
-        pend |= static_cast<uint32_t>(
-                    ((retry >> x) & 1) &&
-                    (sv[x] < th[h] || (sv[x] == th[h] && j < thi[h])))
-                << x;
-      }
+      for (int x = 0; x < 32; ++x)
+        still |= static_cast<uint32_t>(
+                     ((pend >> x) & 1) &&
+                     before_th(sv[x], jt + 8 * (x >> 2) + (x & 1),
+                               (x >> 1) & 1))
+                 << x;
+      pend = still;
     }
   };
 
@@ -534,9 +636,9 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* smem,
     epilogue(acc, bias, rsc, t);
   }
 
-  // every buffer in, then this warp's 16 lists out
-  __syncwarp();
-  merge_rows(1);
+  // every buffer in (the last tile emptied the queues), then this warp's
+  // 16 lists out
+  merge_flagged(bc_[0] > 0, bc_[1] > 0);
   for (int r = 0; r < 16; ++r) {
     const int row = lrow0 + r, b = q0 + row;
     if (b >= a.B) break;

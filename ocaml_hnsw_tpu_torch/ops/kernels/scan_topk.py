@@ -83,6 +83,10 @@ WG_SIDE_SLOTS = 6
 #: many tiles' items, else takes 16 (at the kNN table's block, half the
 #: merges beat a deeper ring: PERF.md §6)
 WG_RING_TILES = 2
+#: (score, id) a wgmma consumer thread queues in registers per query before
+#: its warp flushes them to the buffers (csrc kQueue); four lanes share a
+#: query, so a buffer holds at least 4 x WG_QUEUE entries
+WG_QUEUE = 4
 #: the plan adds row splits until the grid's last wave is this full, with
 #: at least MIN_SPLIT_TILES row tiles per split
 FILL = 0.85
@@ -222,12 +226,12 @@ def wgmma_smem(dp_bytes: int, kcap: int, stages: int, buf: int,
     (one item's size per 128-byte chunk of D), the side ring's slots of a
     tile's bias (and int8 scales), a full and an empty barrier per item
     and per side slot, each query's list of kcap and buffer of `buf`
-    entries, its buffer count."""
+    entries (the buffer's count lives in registers)."""
     nchunks = -(-dp_bytes // CHUNK_BYTES)
     side = WG_ROWS * 4 * (2 if int8 else 1)
     return (stages * (WG_ITEM + 16) + WG_SIDE_SLOTS * (side + 16)
             + warpgroups * nchunks * WG_ITEM
-            + warpgroups * WG_QUERIES * ((kcap + buf) * 8 + 4))
+            + warpgroups * WG_QUERIES * (kcap + buf) * 8)
 
 
 def block_smem(path: str, qt: int, dp_bytes: int, kcap: int, stages: int,

@@ -202,7 +202,7 @@ def test_k3_timeline_stamps_fit_the_kernel():
     src = (k3_timeline.HERE.parent / "csrc" / "scan_topk_wgmma.cu"
            ).read_text()
     out = k3_timeline.stamped(src)
-    assert out.count("clock64()") == 16 and "ohnsw_k3_timeline" in out
+    assert out.count("clock64()") == 18 and "ohnsw_k3_timeline" in out
     for _, new in k3_timeline.STAMPS:
         assert new in out  # every edit in, none undone by a later one
     with pytest.raises(ValueError, match="does not fit"):
@@ -213,7 +213,8 @@ def test_k3_timeline_stamps_fit_the_kernel():
 def test_k3_timeline_summarize():
     """Two blocks on two SMs: the offsets (µs), warp 0's cycles by part
     (millions, `other` the loop's cycles outside the named parts) and the
-    counts the report reads from their rows."""
+    counts the report reads from their rows, with the share of tiles in
+    which warp 0 flushed."""
     import numpy as np
 
     f = k3_timeline.FIELDS
@@ -225,11 +226,16 @@ def test_k3_timeline_summarize():
         rows[b, [f["full_wait"], f["wgmma_wait"], f["release"],
                  f["epilogue"], f["loop"]]] = (1e6, 2e6, 3e6, 4e6, 12e6)
         rows[b, [f["tiles"], f["slow_entries"], f["merges"]]] = (70, 30, 5)
+        rows[b, [f["flush"], f["flushes"], f["flush_tiles"]]] = (
+            5e5, 8 + b, 7)
     s = k3_timeline.summarize(rows)
     assert s["start_us"] == [0.0, 1.0, 2.0] and s["sms"] == 2
     assert s["wg0_end_us"] == [50.0, 51.0, 52.0]
     assert s["other_Mcycles"] == [2.0, 2.0, 2.0]
     assert (s["tiles"], s["merges"]) == ([70.0] * 3, [5.0] * 3)
+    assert s["flush_Mcycles"] == [0.5] * 3
+    assert s["flushes"] == [8.0, 8.5, 9.0] and s["flush_tiles"] == [7.0] * 3
+    assert s["flush_tile_share"] == [0.1] * 3
 
 
 def test_k1_timeline_summarize():

@@ -309,6 +309,8 @@ class TestLaunchPlan:
             wgs = p.qt // k3.WG_QUERIES
             assert wgs in k3.WG_WARPGROUPS and p.rt == k3.WG_ROWS
             assert 2 <= p.stages <= k3.WG_MAX_STAGES and p.buf in k3.WG_BUFS
+            # a merged buffer takes the four lanes' queues of its query
+            assert 4 * k3.WG_QUEUE <= p.buf
             # a warpgroup holds a whole tile's items (one per 128-byte
             # chunk of D) until its products are done
             assert p.stages >= nchunks
@@ -328,6 +330,35 @@ class TestLaunchPlan:
         assert p.qtiles * p.qt >= b > (p.qtiles - 1) * p.qt
         assert p.split_rows % p.rt == 0
         assert (p.splits - 1) * p.split_rows < n <= p.splits * p.split_rows
+
+    @pytest.mark.parametrize("b,n,dim,itemsize,rk,qt,stages,buf", [
+        # sift's kNN-table block (k = 97, lists of 128) and flat batch
+        (8192, MAIN_ROWS, 128, 2, 97, 128, 4, 32),
+        (8192, MAIN_ROWS, 128, 2, 32, 128, 16, 32),
+        # glove's 100-d cosine flat batch: 200-byte rows by cp.async
+        (8192, 1_183_514, 100, 2, 32, 128, 16, 32),
+        # lists of 256 on one warpgroup (a rerank_k of 129..256, a page)
+        (8192, MAIN_ROWS, 128, 2, 256, 64, 8, 32),
+        # int8: G1's kNN block, D2's 96-d flat batch
+        (8192, MAIN_ROWS, 128, 1, 97, 128, 5, 32),
+        (8192, 10_002_432, 96, 1, 32, 128, 16, 32),
+        # wide rows: 16-entry buffers on one warpgroup or two
+        (1024, 100_000, 512, 2, 97, 64, 11, 16),
+        (1024, 100_000, 384, 2, 32, 128, 10, 16),
+    ])
+    def test_buffers_take_the_register_queues(self, b, n, dim, itemsize, rk,
+                                              qt, stages, buf):
+        # the candidate path's queues (WG_QUEUE a thread and query, four
+        # lanes a query) fit every buffer the plan picks, the ring as deep
+        # as before the buffer counts left shared memory, and the block in
+        # the card's shared memory
+        p = k3.launch_plan(b, n, dim, itemsize, rk)
+        assert (p.path, p.qt, p.stages, p.buf) == ("wgmma", qt, stages, buf)
+        assert 4 * k3.WG_QUEUE <= p.buf
+        assert p.smem_bytes == k3.wgmma_smem(p.dp_bytes, p.kcap, p.stages,
+                                             p.buf, itemsize == 1,
+                                             qt // k3.WG_QUERIES)
+        assert p.smem_bytes <= _lib.SMEM_LIMIT
 
     def test_splits_fill_the_card(self):
         # 1024 queries in 128-query blocks: 8 tiles x 14 splits fill 132
