@@ -12,6 +12,15 @@ PACKED_BUDGET_BYTES serves from the packed inline-int8 engine
 package's `.npz` format (`io.py`).  The defaults of `knn_query` are the JAX
 package's, not a benchmarked operating point.
 
+`Index.mark_deleted` / `unmark_deleted` record a tombstone change on the
+host and launch nothing.  The changes reach the graph's `deleted` bits
+together, in one copy and one scatter (the last change of a row wins), as
+soon as a call reads or copies the graph: `knn_query`, `add_items`,
+`resize_index`, `save_index`, `get_items` and the `graph` property;
+`init_index` and `load_index` drop them with the graph they replace.  What
+every call returns is what it would be had each change been written at
+once.
+
 `FlatIndex` is the flat scan (`models/flat.py`: bf16 or int8 scan, exact
 rerank), `BFIndex` the same surface with an exact f32 scan; both read and
 write the JAX package's flat `.npz` files.
@@ -115,6 +124,8 @@ class Index:
         self._label_to_id: dict[int, int] = {}
         self._seeds = None  # SeedIndex cache; invalidated on every add
         self._packed = None  # PackedGraph cache; invalidated on every add
+        #: tombstone changes not yet on the device: internal id -> deleted
+        self._tombstones: dict[int, bool] = {}
         self.ef = 10
 
     # ------------------------------------------------------------- lifecycle
@@ -146,6 +157,7 @@ class Index:
                                  device=self.device)
         self._seeds = None
         self._packed = None
+        self._tombstones = {}
         self._labels = np.zeros((0,), dtype=np.int64)
         self._label_to_id = {}
 
@@ -160,7 +172,24 @@ class Index:
 
     @property
     def graph(self) -> GraphTensors:
-        return self._require_init().graph
+        st = self._require_init()
+        self._apply_tombstones()
+        return st.graph
+
+    def _apply_tombstones(self) -> None:
+        """Write the pending tombstone changes into `graph.deleted`: one
+        host-to-device copy of (ids, flags) and one scatter.  Each id is
+        pending once, with its last change, so the scatter has no
+        duplicate index."""
+        if not self._tombstones:
+            return
+        with annotate("hnsw.api.delete"):
+            pending = np.array([list(self._tombstones),
+                                list(self._tombstones.values())],
+                               dtype=np.int64)
+            self._tombstones = {}
+            t = torch.from_numpy(pending).to(self.device)
+            self._state.graph.deleted.index_put_((t[0],), t[1].bool())
 
     # ------------------------------------------------------------- mutation
     def add_items(self, data, ids=None, **_ignored) -> None:
@@ -177,16 +206,25 @@ class Index:
                     f"index is full: {n_cur} + {n_new} > max_elements "
                     f"{st.max_elements}"
                 )
+        self._apply_tombstones()
         _add_labelled(self, ids, n_cur, n_new, lambda: st.add(data))
         self._seeds = None  # upper-layer membership changed
         self._packed = None  # adjacency changed
 
     def mark_deleted(self, label: int) -> None:
-        """Tombstone (in place): traversed, never returned."""
-        self.graph.deleted[self._id_of(label)] = True
+        """Tombstone: the row stays in the graph and is traversed, but no
+        query returns it.  An unknown label raises here.  The change is
+        kept on the host and reaches the device with every other pending
+        one when a call next reads or copies the graph (module
+        docstring): a loop of calls launches nothing."""
+        self._require_init()
+        self._tombstones[self._id_of(label)] = True
 
     def unmark_deleted(self, label: int) -> None:
-        self.graph.deleted[self._id_of(label)] = False
+        """Undo `mark_deleted`, on the same terms: kept on the host until a
+        call reads the graph; a pending delete of the label is cancelled."""
+        self._require_init()
+        self._tombstones[self._id_of(label)] = False
 
     @torch.no_grad()
     def resize_index(self, new_max_elements: int) -> None:
@@ -195,6 +233,7 @@ class Index:
         st = self._require_init()
         if new_max_elements < st.host_n:
             raise ValueError("cannot shrink below current element count")
+        self._apply_tombstones()
         with annotate("hnsw.api.resize"):
             old = st.graph
             new_state = BuildState(st.config, new_max_elements,
@@ -277,6 +316,7 @@ class Index:
             raise RuntimeError("index is empty")
         if engine not in ("auto", "classic", "packed"):
             raise ValueError(f"engine must be auto|classic|packed, got {engine!r}")
+        self._apply_tombstones()
         with annotate("hnsw.api.prepare"):
             data = np.atleast_2d(np.asarray(data, dtype=np.float32))
             q_n = data.shape[0]
@@ -331,6 +371,7 @@ class Index:
         st = self._require_init()
         iids = np.array([self._id_of(l) for l in np.asarray(ids).reshape(-1)],
                         dtype=np.int64)
+        self._apply_tombstones()
         rows = gather_dequant(st.graph.vectors, st.graph.scales,
                               torch.from_numpy(iids[None, :]).to(self.device))
         return rows[0].cpu().numpy()
@@ -344,6 +385,7 @@ class Index:
     # ----------------------------------------------------------- checkpoints
     def save_index(self, path) -> None:
         st = self._require_init()
+        self._apply_tombstones()
         index_io.save_index_file(
             path, st.graph, st.config, self._labels,
             rng_state=st.rng.get_state(), max_elements=st.max_elements,
@@ -372,6 +414,7 @@ class Index:
         self._state = st
         self._seeds = None
         self._packed = None
+        self._tombstones = {}  # changes to the graph this load replaced
         self._labels = labels
         self._label_to_id = {int(l): i for i, l in enumerate(labels)}
         if max_elements is not None and max_elements > saved_max:
