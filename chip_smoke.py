@@ -150,6 +150,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -277,6 +278,14 @@ K3_ADV_PAGED = 300
 K3_SHARED = 0.999
 #: K3's kernel on the main path (the wgmma block's instances)
 K3_MAIN_KERNEL = "scan_topk_wgmma"
+#: the benchmark cells' seed scans (`check_seed_scan`) besides the main
+#: path's own (sift1m.packed-8192's shape: 8192 queries, seed_e 8, over the
+#: 1M index's 65,536-slot seed index): label, B queries, U_cap seed rows,
+#: live rows (the level>=1 nodes, ~1/16 of the index), D, metric, seed_e.
+#: laion1m.stream's classic call (seed_e 16) over 1M rows, and
+#: msturing2m.update's over its 2M rows and 825k old versions
+SEED_SCANS = (("laion1m", 4096, 65_536, 62_500, 768, "cosine", 16),
+              ("msturing2m", 4096, 262_144, 176_000, 100, "l2", 16))
 #: reps of K3's plain version at the main-path shapes (0.2-2.6 s a call)
 K3_PLAIN_REPS = 3
 
@@ -583,22 +592,27 @@ def reset_launches() -> None:
     scan_topk.launches = 0
     for counts in (scan_topk.launches_by_dtype, scan_topk.launches_by_path):
         counts.update(dict.fromkeys(counts, 0))
+    search_mod.seed_entries.kernel_scans = 0
+    search_mod.seed_entries.plain_scans = 0
 
 
 def read_launches() -> dict:
     """Launch counts: each kernel's, K2's by path ("gather_dists/ring",
     ...) and by row dtype ("gather_dists/int8", ...), K3's by scan dtype
-    ("scan_topk/int8", ...) and by path ("scan_topk/wgmma", ...).  Raises
-    if any scan took K3's plain route (`scan_topk.plain_routes`): no path
-    of this script may."""
-    if scan_topk.plain_routes:
-        raise AssertionError(f"{scan_topk.plain_routes} scans took K3's "
-                             "plain route")
+    ("scan_topk/int8", ...) and by path ("scan_topk/wgmma", ...), and the
+    seed scans K3 served ("seed_entries/kernel").  Raises if any scan took
+    K3's plain route (`scan_topk.plain_routes`,
+    `seed_entries.plain_scans`): no path of this script may."""
+    if scan_topk.plain_routes or search_mod.seed_entries.plain_scans:
+        raise AssertionError(f"{scan_topk.plain_routes} scans and "
+                             f"{search_mod.seed_entries.plain_scans} seed "
+                             "scans took K3's plain route")
     return {"gather_dists": gather_dists.launches,
             "packed_score": packed_score.launches,
             "beam_update": beam_update.launches,
             "beam_step_classic": beam_step_classic.launches,
             "scan_topk": scan_topk.launches,
+            "seed_entries/kernel": search_mod.seed_entries.kernel_scans,
             **{f"gather_dists/{p}": n
                for p, n in gather_dists.launches_by_path.items()},
             **{f"gather_dists/{d}": n
@@ -1307,6 +1321,105 @@ def check_k3_main(x, qps_queries, flush) -> list[dict]:
     return rows
 
 
+def eager_seed_scan(seeds, bias, q, e: int, metric: str):
+    """The seed scan as `seed_entries` ran it before K3 took it (an f32
+    product of bf16-rounded operands, the metric's score, a +inf bias at
+    dead rows, a bf16 cast, `torch.topk`): timed beside K3 here, never
+    called by the port."""
+    mm = metrics_mod.get_metric(metric).matmul_score
+    dot = torch.matmul(q.to(torch.bfloat16).float(), seeds.vecs.float().T)
+    scores = mm(dot, seeds.norms[None, :]) + bias[None, :]
+    return torch.topk(scores.to(torch.bfloat16), e, dim=1,
+                      largest=False).indices
+
+
+def seed_scan_cases(main_call, gen):
+    """(label, seed_entries' arguments) of the seed scans `check_seed_scan`
+    runs: the main path's own, as its packed call passed them (the main
+    index's SeedIndex and the 8192 prepared queries), then SEED_SCANS' on
+    clustered rows behind a seed bank whose slots past the live rows are
+    dead, each made when its turn comes."""
+    yield "sift1m (main index)", main_call
+    for label, b, u_cap, n_live, dim, metric, e in SEED_SCANS:
+        data = clustered(n_live, dim, n_clusters=max(1, n_live // 2500),
+                         seed=int(gen.integers(1 << 30)))
+        x = torch.from_numpy(data).to(DEV)
+        q = search_mod.preprocess_queries(torch.from_numpy(
+            queries_like(data, b, seed=int(gen.integers(1 << 30)))).to(DEV),
+            metric)
+        if metrics_mod.get_metric(metric).normalize_add:
+            x = search_mod.normalize_rows(x)
+        del data
+        vectors, scales, norms = quantize_rows(x, "f32")
+        del x
+        graph = types.SimpleNamespace(vectors=vectors, scales=scales,
+                                      norms=norms)
+        bank = torch.full((u_cap,), -1, dtype=torch.int32, device=DEV)
+        bank[:n_live] = torch.arange(n_live, dtype=torch.int32, device=DEV)
+        seeds = search_mod.seed_index_from_bank(graph, bank, n_live, metric)
+        yield label, (graph, seeds, q, search_mod.query_norms(q, metric), e,
+                      metric)
+
+
+def check_seed_scan(main_call, flush, gen) -> list[dict]:
+    """`seed_entries` on the main path's own operands (`main_call`, the
+    arguments its packed call passed) and at the other benchmark cells'
+    seed-scan shapes (SEED_SCANS): one K3 launch a call (`kernel_scans`),
+    every entry a live seed row, its distance K2's; K3's lists against its
+    plain version's (`k3_agree`: equal but at f32 ties); K3, the eager scan
+    it replaced (`eager_seed_scan`) and the whole `seed_entries` call timed
+    cold beside K3's bound."""
+    rows = []
+    for label, call in seed_scan_cases(main_call, gen):
+        graph, seeds, q, qn, e, metric = call
+        u_cap, dim = seeds.vecs.shape
+        b, n_live = q.shape[0], int(seeds.n)
+        k3_args = (seeds.vecs, seeds.scales, seeds.norms, seeds.dead,
+                   seeds.n, q)
+        before = search_mod.seed_entries.kernel_scans
+        ids, d = search_mod.seed_entries(*call)
+        torch.cuda.synchronize()
+        if search_mod.seed_entries.kernel_scans != before + 1:
+            raise AssertionError(f"seed scan {label}: K3 did not serve it")
+        if not ((ids >= 0) & torch.isin(ids, seeds.ids[~seeds.dead])).all():
+            raise AssertionError(f"seed scan {label}: an entry is not a live "
+                                 "seed row")
+        if not torch.equal(d, gather_dists(graph.vectors, graph.scales, q,
+                                           ids, metric)):
+            raise AssertionError(f"seed scan {label}: entry distances are "
+                                 "not K2's")
+        s, i = scan_topk(*k3_args, e, metric)
+        s_ref, i_ref = scan_topk_plain(*k3_args, e, metric)
+        agree = k3_agree(f"seed scan {label}", seeds.vecs, q, s, i, s_ref,
+                         i_ref, metric)
+        same = float((i == i_ref).float().mean())
+        plan = k3_mod.plan_for(seeds.vecs, b, e)
+        nbytes, ops, peak = k3_cost(n_live, dim, 2, b, e)
+        bms = least_seconds(nbytes, ops, peak) * 1e3
+        ms = time_ms(lambda: scan_topk(*k3_args, e, metric), "read", 10,
+                     flush)
+        bias = torch.where(seeds.dead, float("inf"), 0.0)
+        eager_ms = time_ms(lambda: eager_seed_scan(seeds, bias, q, e, metric),
+                           "read", 5, flush)
+        call_ms = time_ms(lambda: search_mod.seed_entries(*call), "read", 10,
+                          flush)
+        row = dict(case=f"seed scan {label}", shape=[b, u_cap, dim, e],
+                   live=n_live, metric=metric, path=plan.path,
+                   plan=dict(path=plan.path, qt=plan.qt, stages=plan.stages,
+                             buf=plan.buf, producer=plan.producer,
+                             splits=plan.splits),
+                   ids_equal=same, bytes=nbytes, bound_ms=bms, ms=ms,
+                   share=bms / ms, eager_ms=eager_ms, call_ms=call_ms)
+        say(f"[seed scan] {label} B={b} U={u_cap} ({n_live} live) D={dim} "
+            f"{metric} E={e} (plan {json.dumps(row['plan'])}): {agree}, "
+            f"{same:.5f} of ids equal slot for slot; K3 {ms * 1e3:.1f} us "
+            f"= {bms / ms:.1%} of its bound {bms * 1e3:.1f} us; eager scan "
+            f"{eager_ms * 1e3:.1f} us; seed_entries {call_ms * 1e3:.1f} us")
+        rows.append(row)
+        del graph, seeds, q, qn, call, k3_args, bias, ids, d, s, i
+    return rows
+
+
 def check_k1_main(packed, qps_queries, captured, flush, gen) -> list[dict]:
     """On the index's own 1M payload: random nodes (cold) and the nodes of
     the main path's 10th beam iteration (real), at B=4096 (one interleaved
@@ -1373,16 +1486,19 @@ def k2_args(call):
 
 
 def capture_query(index, qps_queries):
-    """Arguments of K1 and K2 in one 8192-query knn_query."""
+    """Arguments of K1, of the seed scan (`seed_entries`) and of K2 in one
+    8192-query knn_query."""
     with recording(packed_mod, "packed_score") as k1_calls, \
+            recording(packed_mod, "seed_entries") as scans, \
             recording(packed_mod, "dists_to_ids") as rerank, \
             recording(search_mod, "dists_to_ids") as seed:
         index.knn_query(qps_queries, **QUERY_KNOBS)
     if len(k1_calls) != 2 * QUERY_KNOBS["max_iters"] or len(rerank) != 1 \
-            or len(seed) != 1:
+            or len(seed) != 1 or len(scans) != 1:
         raise AssertionError(f"capture: {len(k1_calls)} K1 calls, "
-                             f"{len(rerank)} reranks, {len(seed)} seed scans")
-    return k1_calls, k2_args(seed[0]), k2_args(rerank[0])
+                             f"{len(rerank)} reranks, {len(scans)} seed "
+                             f"scans, {len(seed)} seed re-scores")
+    return k1_calls, scans[0], k2_args(seed[0]), k2_args(rerank[0])
 
 
 def capture_knn_batch(x: torch.Tensor):
@@ -3004,10 +3120,19 @@ def main(argv: list[str]) -> int:
             "stop here")
         return 0
     reset_launches()
-    k1_calls, seed_call, rerank_call = capture_query(index, qps_queries)
+    k1_calls, seed_scan, seed_call, rerank_call = capture_query(index,
+                                                                qps_queries)
     batch_launches = read_launches()
     say(f"[main] launches per {QPS_BATCH}-query batch: "
         f"{json.dumps(batch_launches)}")
+    require_launches("main query batch", batch_launches,
+                     ["packed_score", "beam_update", "gather_dists",
+                      "scan_topk", "scan_topk/bf16", "seed_entries/kernel"])
+    # K3's one launch in a packed call is the seed scan's
+    if batch_launches["seed_entries/kernel"] != 1 \
+            or batch_launches["scan_topk"] != 1:
+        raise AssertionError("main query batch: K3 did not serve its one "
+                             f"seed scan: {json.dumps(batch_launches)}")
 
     # ---- kernels at the main path's shapes, on its data and its inputs
     k1_rows += check_k1_main(index._packed_index(), qps_queries, k1_calls,
@@ -3018,6 +3143,8 @@ def main(argv: list[str]) -> int:
                              flush, gen)
     del knn_call, seed_call, rerank_call
     k3_rows += check_k3_main(x, qps_queries, flush)
+    seed_rows = check_seed_scan(seed_scan, flush, gen)
+    del seed_scan
     # one flat-scan batch (K3, the K2 rerank, sorts): 8192 queries over the
     # 1M rows, bf16 scan
     flat = bulk_mod.flat_from_rows(x, "l2")
@@ -3224,7 +3351,8 @@ def main(argv: list[str]) -> int:
                       "path": r["path"], "plan": r["plan"],
                       "product_ms": r["product_ms"],
                       **{s: r[s] for s in shapes}}
-                     for r in k3_rows if "ms" in r]),
+                     for r in k3_rows if "ms" in r],
+             seed_scans=seed_rows),
     ]}
     print(json.dumps(record))
     print(smi)

@@ -9,11 +9,13 @@ default) the rest of a beam iteration is one launch on the card: the
 classic step of `ops/kernels/beam_update.py` (merge, select, expand, dedup,
 compact).
 
-The seed scan is one matrix product of the queries against every level>=1
-node's bf16 vector, top-E by bf16 score, then an exact re-score of the E
-winners through the gather-distance kernel.  The JAX package's
-`approx_min_k` becomes exact `torch.topk`; ties among bf16 scores may pick
-other seeds, so seeded searches agree with the JAX package at recall level.
+The seed scan is one scan-and-select (K3, `ops/kernels/scan_topk.py`) of
+the queries against every level>=1 node's bf16 vector: the bf16 product on
+the tensor cores and each query's lowest E f32 scores kept on chip, no
+[B, U] score block.  Then the E winners are re-scored exactly by the
+gather-distance kernel.  The JAX package ranks by bf16-rounded scores with
+`approx_min_k`; ties and near-ties among those may pick other seeds, so
+seeded searches agree with the JAX package at recall level.
 
 The JAX `while_loop`s become host loops.  The beam loop asks the device
 whether any beam member is unexpanded only every CONVERGE_CHECK iterations:
@@ -38,6 +40,9 @@ from ocaml_hnsw_tpu_torch.ops.bitset import (
 )
 from ocaml_hnsw_tpu_torch.ops.distance import (
     INF, dists_to_ids, gather_dequant, query_norms,
+)
+from ocaml_hnsw_tpu_torch.ops.kernels.scan_topk import (
+    launches_kernel, scan_topk,
 )
 from ocaml_hnsw_tpu_torch.ops.kernels.beam_update import (
     beam_step_classic, beam_update, select_unexpanded,
@@ -200,19 +205,37 @@ def _beam_only_loop(vectors, scales, norms, adj, q, qn, beam_pk, beam_d,
 
 @dataclasses.dataclass
 class SeedIndex:
-    """Coarse entry-point index: a dense copy of every level>=1 node's vector.
+    """Coarse entry-point index: a dense copy of every level>=1 node's vector,
+    held as the operands of K3's scan (`scan_topk`), made once.
 
-    ids:   i32[U_cap]     global node id per row (padding repeats a real row)
-    vecs:  bf16[U_cap, D] that node's stored vector (dequantized, bf16)
-    norms: f32[U_cap]     ||x||² for l2 scoring (zeros for ip/cosine)
-    bias:  f32[U_cap]     additive score bias: 0 on live rows, +inf on
-                          masked padding
+    ids:    i32[U_cap]     global node id per row (padding repeats a real row)
+    vecs:   bf16[U_cap, D] that node's stored vector (dequantized, bf16)
+    norms:  f32[U_cap]     ||x||² for l2 scoring (zeros for ip/cosine)
+    dead:   bool[U_cap]    rows never returned: padding, unfilled bank slots
+    n:      i32[]          live rows, which are the first n
+    scales: f32[U_cap]     K3's per-row int8 scales; its bf16 scan reads none
     """
 
     ids: torch.Tensor
     vecs: torch.Tensor
     norms: torch.Tensor
-    bias: torch.Tensor
+    dead: torch.Tensor
+    n: torch.Tensor
+    scales: torch.Tensor
+
+
+def _seed_index(ids, vecs, live, metric: str) -> SeedIndex:
+    """SeedIndex of rows `ids` with f32 `vecs`, the rows where `live` holds
+    (a prefix) returnable."""
+    u_cap = ids.shape[0]
+    if get_metric(metric).needs_norms:
+        norms = torch.sum(vecs * vecs, dim=1)
+    else:
+        norms = torch.zeros((u_cap,), dtype=torch.float32, device=ids.device)
+    return SeedIndex(ids=ids, vecs=vecs.to(torch.bfloat16), norms=norms,
+                     dead=~live, n=live.sum(dtype=torch.int32),
+                     scales=torch.ones((u_cap,), dtype=torch.float32,
+                                       device=ids.device))
 
 
 @torch.no_grad()
@@ -242,56 +265,55 @@ def build_seed_index(graph: GraphTensors, metric: str,
     u_cap = max(128, 1 << int(math.ceil(math.log2(upper.size))))
     pad = np.full(u_cap, upper[0], np.int32)
     pad[: upper.size] = upper
-    dev = graph.device
-    ids = torch.from_numpy(pad).to(dev)
+    ids = torch.from_numpy(pad).to(graph.device)
     vecs = gather_dequant(graph.vectors, graph.scales, ids[None, :])[0]
-    if get_metric(metric).needs_norms:
-        norms = torch.sum(vecs * vecs, dim=1)
-    else:
-        norms = torch.zeros((u_cap,), dtype=torch.float32, device=dev)
-    return SeedIndex(ids=ids, vecs=vecs.to(torch.bfloat16), norms=norms,
-                     bias=torch.zeros((u_cap,), dtype=torch.float32,
-                                      device=dev))
+    # the padding repeats a real row: dead, or l2 would score it
+    live = torch.arange(u_cap, device=ids.device) < upper.size
+    return _seed_index(ids, vecs, live, metric)
 
 
 def seed_index_from_bank(graph: GraphTensors, bank, n_live,
                          metric: str) -> SeedIndex:
     """SeedIndex view of a build-time seed bank (i32[U_cap] ids, -1 past
     the live count `n_live`), on the graph's device: the sharded engine's
-    entry, where each shard keeps its own bank.  Dead slots get a +inf
-    score bias."""
+    entry, where each shard keeps its own bank.  Slots past `n_live` are
+    dead."""
     safe = bank.clamp_min(0)
     vecs = gather_dequant(graph.vectors, graph.scales, safe[None, :])[0]
     live = torch.arange(bank.shape[0], device=bank.device) < n_live
-    if get_metric(metric).needs_norms:
-        norms = torch.sum(vecs * vecs, dim=1)
-    else:
-        norms = torch.zeros((bank.shape[0],), dtype=torch.float32,
-                            device=bank.device)
-    return SeedIndex(ids=safe, vecs=vecs.to(torch.bfloat16), norms=norms,
-                     bias=torch.where(live, 0.0, INF))
+    return _seed_index(safe, vecs, live, metric)
 
 
 def seed_entries(graph: GraphTensors, seeds: SeedIndex, q, qn, e: int,
                  metric: str):
-    """Top-E upper-layer nodes per query: one scan + top-E, then exact
-    re-scoring of the E winners.  Returns (ids i32[B, E], d f32[B, E])."""
-    mm = get_metric(metric).matmul_score
-    if mm is None:
+    """Top-E upper-layer nodes per query: one scan-and-select over the seed
+    rows (`scan_topk`: K3 on the card, its plain version on the CPU and
+    for registry metrics), then an exact re-score of the E winners (K2).
+    Returns (ids i32[B, E], d f32[B, E]), -1 / +inf where fewer than E
+    rows are live.  `seed_entries.kernel_scans` and `.plain_scans` count
+    the calls each of K3's routes served."""
+    if get_metric(metric).matmul_score is None:
         raise ValueError(
             f"metric {metric!r} has no matmul_score; seed-scan entry needs "
             "one — pass seeds=None to use greedy descent"
         )
-    # bf16 operands, f32 products and sums (TF32 off)
-    dot = torch.matmul(q.to(torch.bfloat16).float(), seeds.vecs.float().T)
-    scores = mm(dot, seeds.norms[None, :]) + seeds.bias[None, :]
-    # rank by bf16 scores, as the JAX package does
-    ii = torch.topk(scores.to(torch.bfloat16), e, dim=1, largest=False).indices
-    live = (seeds.bias == 0.0)[ii]
-    sids = torch.where(live, seeds.ids[ii], -1).to(torch.int32)
+    _, ii = scan_topk(seeds.vecs, seeds.scales, seeds.norms, seeds.dead,
+                      seeds.n, q, e, metric)
+    if launches_kernel(seeds.vecs, metric):
+        seed_entries.kernel_scans += 1
+    else:
+        seed_entries.plain_scans += 1
+    # K3 gives -1 past the live rows; its plain version, dead rows at +inf
+    safe = ii.clamp_min(0)
+    live = (ii >= 0) & ~seeds.dead[safe]
+    sids = torch.where(live, seeds.ids[safe], -1).to(torch.int32)
     sd = dists_to_ids(graph.vectors, graph.scales, graph.norms, q, qn, sids,
                       metric)
     return sids, sd
+
+
+seed_entries.kernel_scans = 0  # seed scans K3 launched for
+seed_entries.plain_scans = 0  # seed scans its plain version served
 
 
 def descend(graph: GraphTensors, q, qn, metric: str, stop_level: int = 0):

@@ -11,7 +11,8 @@ launches in `<wrapper>.launches`.
 - `scan_topk.scan_topk` — `csrc/scan_topk_wgmma.cu` (the `wgmma` path) and
   `csrc/scan_topk.cu` (the `sync` path); replaces the flat scan the
   JAX package leaves to XLA on the TPU (`ocaml_hnsw_tpu/models/flat.py`:
-  the MXU `dot_general` fused with `approx_min_k`).
+  the MXU `dot_general` fused with `approx_min_k`), and serves the query
+  seed scan (`models/search.py::seed_entries`) too.
 - `beam_update.beam_update` — `csrc/beam_update.cu`; the packed beam
   loop's dedup, merge and next-node select in one launch (the JAX engine
   leaves that step to XLA; it replaces no TPU kernel).

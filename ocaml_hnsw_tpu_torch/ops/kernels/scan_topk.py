@@ -440,6 +440,12 @@ def _launch(device, *args) -> int:
         return _lib.library().ohnsw_scan_topk(*args, stream)
 
 
+def launches_kernel(scan, metric: str) -> bool:
+    """Whether `scan_topk` launches the kernel for a scan of these rows
+    under `metric`; where not, its plain version serves the call."""
+    return metric in KERNEL_METRICS and scan.is_cuda
+
+
 def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
               metric: str, path: str | None = None):
     """(scores f32[B, rerank_k], ids i64[B, rerank_k]) ascending: the lowest
@@ -461,11 +467,9 @@ def scan_topk(scan, scales, norms, deleted, n, q, rerank_k: int,
       * any other registered metric (its `matmul_score` is a Python
         callable the kernel cannot hold): the plain version on whatever
         device the tensors are on, counted in `scan_topk.plain_routes`."""
-    if metric not in KERNEL_METRICS:
-        scan_topk.plain_routes += 1
-        return scan_topk_plain(scan, scales, norms, deleted, n, q, rerank_k,
-                               metric)
-    if not scan.is_cuda:
+    if not launches_kernel(scan, metric):
+        if metric not in KERNEL_METRICS:
+            scan_topk.plain_routes += 1
         return scan_topk_plain(scan, scales, norms, deleted, n, q, rerank_k,
                                metric)
     n_rows, dim = scan.shape

@@ -11,10 +11,10 @@ carried into the JAX package with `graph_to_numpy`.
     real-valued, so ties are absent and the bitonic networks are ported as
     networks; ids must be equal and distances equal to rtol 1e-5 (f32
     summation order differs).
-  * `knn_search` with the seed scan: the JAX package ranks the seed scores
-    with `approx_min_k` and the port with `torch.topk`, which may break bf16
-    ties otherwise, so recall@10 must be within 0.01 of JAX's and distances
-    of shared ids equal to 1e-5.
+  * `knn_search` with the seed scan: the JAX package ranks bf16-rounded
+    seed scores with `approx_min_k` and the port f32 scores in K3's
+    `scan_topk`, which may order near-ties otherwise, so recall@10 must be
+    within 0.01 of JAX's and distances of shared ids equal to 1e-5.
 """
 
 import numpy as np

@@ -216,8 +216,9 @@ class TestAgainstJax:
                                       np.asarray(j.vecs, np.float32))
         np.testing.assert_allclose(t.norms.numpy(), np.asarray(j.norms),
                                    rtol=1e-6)
-        np.testing.assert_array_equal(t.bias.numpy(), np.asarray(j.bias))
-        assert np.isinf(t.bias.numpy()[n_live:]).all()
+        np.testing.assert_array_equal(t.dead.numpy(),
+                                      np.isinf(np.asarray(j.bias)))
+        assert t.dead.numpy()[n_live:].all() and int(t.n) == n_live
 
     def test_merge_ties_match_lax_top_k(self):
         """Per-shard results with many equal distances (and -1 / +inf

@@ -79,8 +79,12 @@ EXCLUDED = {
         {("name", "models/packed.py", "nibble_unpack_bf16")}),
     "search.py's bitonic_sort": (
         "an import JAX's search.py uses for its seed top-k; the port's "
-        "search.py takes torch.topk there",
+        "seed scan selects inside K3 (ops/kernels/scan_topk.py)",
         {("name", "models/search.py", "bitonic_sort")}),
+    "SeedIndex.bias": (
+        "JAX adds a +inf score bias at dead seed rows; the port's SeedIndex "
+        "holds K3's operands, where a bool `dead` masks them",
+        {("member", "models/search.py", "SeedIndex", "bias")}),
     "packed.py's merge_into_beam": (
         "an import JAX's packed.py uses in its beam step; the port's beam "
         "step merges in K4 (ops/kernels/beam_update.py, whose plain version "
